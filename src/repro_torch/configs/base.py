@@ -1,0 +1,125 @@
+"""Architecture configuration (a copy of ``repro/configs/base.py``).
+
+``ArchConfig`` keeps every field of the reference, so that ``reduced()``
+gives the same shapes in both packages. Only the paper's own dense models
+(``configs/paper.py``) are ported; the other architectures of the
+reference raise until their model families are (ROADMAP.md Queue A,
+"the remaining model families").
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+
+def round_up(x: int, multiple: int) -> int:
+    return ((x + multiple - 1) // multiple) * multiple
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    """A single architecture configuration (``family`` selects the
+    builder in ``repro_torch.models.api``; only ``dense`` is ported)."""
+
+    name: str
+    family: str
+    source: str
+
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+
+    head_dim: Optional[int] = None
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    rope_theta: float = 10_000.0
+    long_context_window: int = 8_192
+
+    mlp_type: str = "swiglu"  # swiglu | relu2 | gelu
+
+    n_experts: int = 0
+    top_k: int = 0
+    moe_impl: str = "densemask"
+
+    ssm_state: int = 0
+    d_conv: int = 4
+    expand: int = 2
+    chunk_size: int = 128
+    attn_every: int = 6
+
+    slstm_every: int = 4
+
+    n_frames: int = 0
+    n_patches: int = 0
+    n_encoder_layers: int = 0
+
+    dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+    embed_impl: str = "onehot"
+    attn_impl: str = "blocked"  # blocked (plain torch) | pallas (not ported)
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim if self.head_dim else self.d_model // self.n_heads
+
+    @property
+    def padded_vocab(self) -> int:
+        return round_up(self.vocab_size, 256)
+
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
+
+    def reduced(self) -> "ArchConfig":
+        """Smoke-test variant: 2 layers, d_model<=256 (the reference's
+        ``reduced``, field for field)."""
+        d_model = min(self.d_model, 256)
+        n_heads = min(self.n_heads, 4)
+        n_kv = min(self.n_kv_heads, max(1, n_heads // 2))
+        return dataclasses.replace(
+            self,
+            name=self.name + "-reduced",
+            n_layers=2,
+            d_model=d_model,
+            n_heads=n_heads,
+            n_kv_heads=n_kv,
+            head_dim=d_model // n_heads,
+            d_ff=min(self.d_ff, 512) if self.d_ff else 0,
+            vocab_size=min(self.vocab_size, 1024),
+            n_experts=min(self.n_experts, 4) if self.is_moe else 0,
+            top_k=min(self.top_k, 2) if self.is_moe else 0,
+            ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
+            chunk_size=8,
+            attn_every=2,
+            slstm_every=2,
+            n_frames=min(self.n_frames, 16) if self.n_frames else 0,
+            n_patches=min(self.n_patches, 8) if self.n_patches else 0,
+            n_encoder_layers=2 if self.n_encoder_layers else 0,
+            long_context_window=64,
+            dtype="float32",
+        )
+
+
+# the reference's other architectures, not ported yet
+_NOT_PORTED = (
+    "phi3.5-moe-42b-a6.6b", "zamba2-7b", "internvl2-1b",
+    "granite-moe-1b-a400m", "whisper-base", "llama3-405b", "qwen1.5-110b",
+    "xlstm-1.3b", "qwen3-32b", "nemotron-4-15b",
+)
+
+
+def get_config(arch_id: str) -> ArchConfig:
+    from repro_torch.configs.paper import CONFIGS
+    if arch_id in CONFIGS:
+        return CONFIGS[arch_id]
+    if arch_id in _NOT_PORTED:
+        raise NotImplementedError(
+            f"arch {arch_id!r} is not ported yet: only the paper's dense "
+            f"models {sorted(CONFIGS)} are (ROADMAP.md Queue A, 'the "
+            "remaining model families')")
+    raise KeyError(f"unknown arch {arch_id!r}; ported: {sorted(CONFIGS)}")

@@ -1,0 +1,101 @@
+"""Kernel dispatch for the port (counterpart of ``repro/kernels/__init__.py``).
+
+Every kernel module fronts one CUDA C++ kernel (``csrc/``) with a plain
+PyTorch version (``ref.py``). ``resolve_impl`` is the single decision
+point: ``"auto"`` launches the kernel for a CUDA tensor and takes the
+plain version for a CPU tensor; an explicit ``"cuda"`` on a CPU tensor
+raises. ``"torch"`` is allowed on either device, for comparisons. There
+is no silent fallback: a CUDA tensor under ``"auto"`` or ``"cuda"``
+launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+
+IMPLS = ("auto", "torch", "cuda")
+MAX_ROWS = 65535      # CUDA's limit on gridDim.y, which indexes the rows
+
+
+def resolve_impl(impl: str, device: torch.device) -> str:
+    """``"cuda"`` (launch the kernel) or ``"torch"`` (plain version)."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r} (have {IMPLS})")
+    on_cuda = torch.device(device).type == "cuda"
+    if impl == "auto":
+        return "cuda" if on_cuda else "torch"
+    if impl == "cuda" and not on_cuda:
+        raise ValueError(
+            f"impl='cuda' launches a CUDA kernel, but the tensor is on "
+            f"{torch.device(device)} — move it to a CUDA device, or pass "
+            "impl='torch' (the plain version) or impl='auto'")
+    return impl
+
+
+def check_rows(name: str, *tensors: torch.Tensor) -> tuple:
+    """Validate the (G, N) f32 buffers of one kernel call: same shape,
+    same device, contiguous, and one shared alignment (the kernels read
+    16-byte vectors from the same element offsets of every buffer).
+    Returns (G, N)."""
+    x = tensors[0]
+    if x.dim() != 2:
+        raise ValueError(
+            f"{name}: expected (G, N) buffers, got {tuple(x.shape)}")
+    for t in tensors:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: expected float32, got {t.dtype}")
+        if t.shape != x.shape:
+            raise ValueError(
+                f"{name}: shape {tuple(t.shape)} != {tuple(x.shape)}")
+        if t.device != x.device:
+            raise ValueError(f"{name}: tensors on {t.device} and {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: buffers must be contiguous")
+    if x.is_cuda and len({t.data_ptr() % 16 for t in tensors}) != 1:
+        raise ValueError(f"{name}: buffers must share one 16-byte alignment")
+    if x.shape[0] > MAX_ROWS:
+        raise ValueError(f"{name}: at most {MAX_ROWS} rows (one grid row each)")
+    return x.shape[0], x.shape[1]
+
+
+def check_active(name: str, active, rows: int, device) -> None:
+    if active is None:
+        return
+    if active.dtype != torch.bool or active.shape != (rows,):
+        raise ValueError(f"{name}: active must be a ({rows},) bool tensor, "
+                         f"got {active.dtype} {tuple(active.shape)}")
+    if active.device != torch.device(device) or not active.is_contiguous():
+        raise ValueError(f"{name}: active must be contiguous on {device}")
+
+
+def assign_rows(active, outs, news) -> None:
+    """Plain-version epilogue of the in-place kernels: copy each new value
+    into its buffer, on the active rows only."""
+    for out, new in zip(outs, news):
+        out.copy_(new if active is None
+                  else torch.where(active[:, None], new, out))
+
+
+def ptr(t) -> int:
+    """Device pointer for a launcher; 0 (NULL) for an absent tensor."""
+    return 0 if t is None else t.data_ptr()
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def blocks_per_row(x: torch.Tensor, per_sm: int = 8) -> int:
+    """Grid width of one row for the streaming kernels: enough 256-thread
+    blocks over all rows to keep ``per_sm`` blocks resident on every SM,
+    and never more than one float4 per thread."""
+    rows, n = x.shape
+    want = -(-_sm_count(x.device.index) * per_sm // max(rows, 1))
+    return max(1, min(want, -(-n // (4 * 256))))
+
+
+def stream_of(x: torch.Tensor) -> int:
+    """Handle of the current stream on ``x``'s device, for a launcher."""
+    return torch.cuda.current_stream(x.device).cuda_stream

@@ -1,0 +1,36 @@
+"""Per-row squared L2 norm (counterpart of ``repro/kernels/sq_norm.py``).
+
+``sq_norm_groups`` reduces a (G, N) float32 buffer to (G,): the traj
+``grad_sq`` of every local step and both consensus metrics of every
+round. On a CUDA tensor it launches the deterministic two-pass
+``repro_sq_norm_groups`` (``csrc/sq_norm.cu``) with a (G, blocks)
+scratch allocated here; on a CPU tensor it takes
+``ref.sq_norm_groups_ref``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import (blocks_per_row, build, check_rows,
+                                 resolve_impl, stream_of)
+from repro_torch.kernels.ref import sq_norm_groups_ref
+
+launches = 0     # kernel launches since the count was last set to 0
+
+
+def sq_norm_groups(x, *, impl="auto"):
+    """Per-row sum of squares of (G, N) float32 -> (G,) float32."""
+    global launches
+    rows, n = check_rows("sq_norm_groups", x)
+    if resolve_impl(impl, x.device) == "torch":
+        return sq_norm_groups_ref(x)
+    blocks = min(1024, blocks_per_row(x))
+    partials = torch.empty((rows, blocks), dtype=torch.float32,
+                           device=x.device)
+    out = torch.empty((rows,), dtype=torch.float32, device=x.device)
+    build.launch("sq_norm", "repro_sq_norm_groups", x.data_ptr(),
+                 partials.data_ptr(), out.data_ptr(), rows, n, blocks,
+                 stream_of(x))
+    launches += 1
+    return out
+

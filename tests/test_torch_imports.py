@@ -1,0 +1,46 @@
+"""The port's import rule: ``src/repro_torch/`` and ``chip_smoke.py``
+import neither JAX nor the reference package ``repro``, and the port
+imports with JAX made unimportable."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    found = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            found += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if _forbidden(node.module or ""):
+                found.append(node.module)
+    assert not found, f"{path.name} imports {found}"
+
+
+def test_port_imports_without_jax():
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['repro'] = None; "
+            "import repro_torch, repro_torch.launch.train, "
+            "repro_torch.core.localsgd, repro_torch.bridge, "
+            "repro_torch.kernels.build; "
+            "import torch; "
+            "assert not torch.backends.cuda.matmul.allow_tf32; "
+            "assert not torch.backends.cudnn.allow_tf32")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr

@@ -1,0 +1,47 @@
+"""The port's launcher, as a user runs it: on the CPU when asked, and a
+clear refusal (naming CUDA) when it defaults to the card and there is
+none. Decides nothing at import time: whether CUDA exists is read inside
+the test."""
+import os
+import subprocess
+import sys
+
+import torch
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+CMD = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+       "paper-mlp", "--reduced", "--packed", "--rounds", "2", "--groups",
+       "2", "--t-inner", "2", "--seq", "32"]
+
+
+def _run(args):
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    return subprocess.run(CMD + args, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=300)
+
+
+def test_cli_runs_on_cpu_when_asked():
+    out = _run(["--device", "cpu", "--opt", "adamw", "--t-i", "1,2"])
+    assert out.returncode == 0, out.stderr
+    rounds = [l for l in out.stdout.splitlines() if l.startswith("round ")]
+    assert len(rounds) == 2
+    assert "T 2" in rounds[0] and "wire " in rounds[0]
+    assert "comm server/fp32" in out.stdout
+
+
+def test_cli_defaults_to_cuda_and_refuses_without_it():
+    out = _run([])
+    if torch.cuda.is_available():
+        assert out.returncode == 0, out.stderr
+    else:
+        assert out.returncode != 0
+        assert "CUDA" in out.stderr
+        assert "round " not in out.stdout
+
+
+def test_cli_refuses_flags_outside_the_slice():
+    for extra in (["--threshold", "1e-3"], ["--comm", "ring"],
+                  ["--mode", "sync"]):
+        out = _run(["--device", "cpu"] + extra)
+        assert out.returncode != 0
+        assert "not ported yet" in out.stderr, (extra, out.stderr)
