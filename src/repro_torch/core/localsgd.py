@@ -7,15 +7,23 @@
 The state is one (G, N) float32 buffer per stream (params plus the
 optimizer's moments). Each local step takes every group's gradient
 against its own row, then updates all G*N elements with one fused kernel
-launch. The round ends with one exchange of every stream over G
-(server/fp32 by default) and the reference's observability block.
+launch. The round ends with one exchange of every stream over G through
+the exchange's topology and codecs (server/fp32 by default; DESIGN.md
+§8, §10) and the reference's observability block.
 
 The round takes ownership of ``state_G``: its buffers are updated in
 place (the reference donates them to its jitted round) and returned in
-the new state. Per-group gradients come from a Python loop over G: row g
-is unpacked into detached views that require grad, ``torch.autograd.grad``
-runs on group g's batch, and the leaf gradients are copied into row g of
-one (G, N) gradient buffer.
+the new state. So a lossy stream, whose codec encodes the round delta
+``x_T - x_0``, gets a copy of its round-start value before the local
+steps (one (G, N) buffer per lossy stream); fp32 streams are not copied.
+An exchange that carries state between rounds (codec counters and
+residuals, staleness buffers, downlink references) keeps it in the train
+state under ``"comm"`` (``init_state(..., exchange=...)``).
+
+Per-group gradients come from a Python loop over G: row g is unpacked
+into detached views that require grad, ``torch.autograd.grad`` runs on
+group g's batch, and the leaf gradients are copied into row g of one
+(G, N) gradient buffer.
 
 Not ported yet (ROADMAP.md Queue A, core/localsgd.py): the pytree round,
 threshold (T_i = inf) mode, microbatch inner mode, ``make_sync_step``
@@ -81,15 +89,58 @@ def _round_wire_bytes(exch, layout, moment_keys) -> dict:
     return out
 
 
-def _obs_round_metrics(exch, streams, consensus_pre, consensus_post,
-                       n_groups: int, device) -> dict:
-    """The reference's uniform per-round block (DESIGN.md §13) as a
-    reliable, stateless, single-tier exchange gives it: no codec error,
-    no backlog, full participation and delivery."""
-    zeros = torch.zeros((n_groups,), dtype=torch.float32, device=device)
+def _check_comm_state(exch, state_G, mkeys=()) -> None:
+    if exch.stateful and "comm" not in state_G:
+        raise ValueError(
+            f"exchange {exch.name!r} carries round-to-round state "
+            "(staleness buffers / codec residuals); build the train state "
+            "with init_state(..., exchange=...)")
+    if (exch.topology == "async_stale" and mkeys
+            and "pushed_opt" not in state_G.get("comm", {})):
+        raise ValueError(
+            "async_stale averages opt state through per-stream staleness "
+            "buffers; build the train state with init_state(..., "
+            "exchange=...) so comm['pushed_opt'] is allocated "
+            "(DESIGN.md §10)")
+
+
+def _clamp_nonneg_streams(mixed: dict, opt, exch) -> dict:
+    """Project lossy-decoded non-negative moment streams (adamw's v) back
+    onto [0, inf), in place: a delta codec's decode error is bounded by
+    the chunk scale, so a small v element can come back slightly
+    negative, and sqrt(v) would be NaN. Identity moment codecs without a
+    lossy downlink skip this (the default path stays bit-exact)."""
+    if ((exch.mcodec.identity and not exch.lossy_downlink)
+            or exch.topology == "none"):
+        return mixed
+    for k in opt.moment_nonneg:
+        if k in mixed:
+            mixed[k].clamp_(min=0.0)
+    return mixed
+
+
+def _residual_sq_groups(res, n_groups: int, device, impl: str):
+    """Per-group squared mass of a codec's error-feedback residual ->
+    (G,), reduced by the sq_norm_groups kernel; zeros when the stream's
+    codec carries none."""
+    if res is None:
+        return torch.zeros((n_groups,), dtype=torch.float32, device=device)
+    return sq_norm_groups(res, impl=impl)
+
+
+def _obs_round_metrics(exch, comm_state: dict, streams, consensus_pre,
+                       consensus_post, n_groups: int, device,
+                       impl: str) -> dict:
+    """The reference's uniform per-round block (DESIGN.md §13) on a
+    reliable single-tier exchange: consensus before and after, each
+    stream's codec error (its error-feedback residual), no backlog, full
+    participation and delivery."""
     one = torch.ones((), dtype=torch.float32, device=device)
     m = {"consensus_sq": consensus_pre, "consensus_sq_post": consensus_post}
-    m.update({f"codec_err/{s}": zeros for s in streams})
+    cstates = comm_state.get("codec", {})
+    for s in streams:
+        m[f"codec_err/{s}"] = _residual_sq_groups(
+            cstates.get(s, {}).get("residual"), n_groups, device, impl)
     m["backlog_mass"] = torch.zeros((), dtype=torch.float32, device=device)
     rate = torch.tensor(exch.delivery_rate, dtype=torch.float32,
                         device=device)
@@ -106,12 +157,13 @@ def make_local_round(loss_fn: Callable, opt: Optimizer, cfg: LocalSGDConfig,
     """Build ``round(state_G, batch_G) -> (state_G, metrics)``.
 
     loss_fn(params, batch) -> scalar tensor. state_G: {"params": (G, N),
-    "opt": packed opt state}. batch_G: dict of tensors with a leading G
-    axis. Needs ``layout`` (the packed round; the optimizers of
-    ``repro_torch.optim`` are all packed). ``opt.impl`` selects the
-    kernels: on a CUDA state "auto" launches them (every update step and
-    every per-group norm). Every moment stream is averaged with the
-    params, as in the reference's default."""
+    "opt": packed opt state}, plus "comm" when the exchange carries state.
+    batch_G: dict of tensors with a leading G axis. Needs ``layout`` (the
+    packed round; the optimizers of ``repro_torch.optim`` are all packed).
+    ``opt.impl`` selects the update and norm kernels: on a CUDA state
+    "auto" launches them; the exchange's codecs dispatch on the device
+    the same way. Every moment stream is exchanged with the params, each
+    through the exchange's moment codec, as in the reference's default."""
     if layout is None:
         raise NotImplementedError(
             "only the packed round is ported: pass layout= (the pytree "
@@ -143,9 +195,15 @@ def make_local_round(loss_fn: Callable, opt: Optimizer, cfg: LocalSGDConfig,
     G, T = cfg.n_groups, cfg.inner_steps
 
     def round_(state_G, batch_G):
+        _check_comm_state(exch, state_G, mkeys)
+        comm_state = state_G.get("comm", {})
         params = state_G["params"]
         dev = params.device
         opt_state = dict(state_G["opt"])
+        # the round start of every lossy stream (the buffers are updated
+        # in place below); fp32 streams are never copied
+        xs0 = {k: (params if k == "params" else opt_state[k]).clone()
+               for k in ("params",) + tuple(mkeys) if exch.lossy_stream(k)}
         if per_group_count and opt_state["count"].dim() == 0:
             # first round after init: the shared count becomes one per group
             opt_state["count"] = opt_state["count"].expand(G).clone()
@@ -188,24 +246,40 @@ def make_local_round(loss_fn: Callable, opt: Optimizer, cfg: LocalSGDConfig,
                        "grad_sq": torch.stack(gsq_G)}
 
         consensus_pre = _consensus_sq_flat(params, opt.impl)
-        # every stream (params and moments) is exchanged in place
-        exch.streams({"params": params, **{k: opt_state[k] for k in mkeys}})
+        # every stream (params and moments) through the exchange; the
+        # step count is never exchanged
+        mixed, comm_state = exch.streams(
+            {"params": params, **{k: opt_state[k] for k in mkeys}}, xs0,
+            comm_state)
+        del xs0
+        mixed = _clamp_nonneg_streams(mixed, opt, exch)
+        params = mixed["params"]
+        opt_state.update({k: mixed[k] for k in mkeys})
         metrics.update(_round_wire_bytes(exch, layout, mkeys))
         metrics.update(_obs_round_metrics(
-            exch, ("params",) + tuple(mkeys), consensus_pre,
-            _consensus_sq_flat(params, opt.impl), G, dev))
-        return {"params": params, "opt": opt_state}, metrics
+            exch, comm_state, ("params",) + tuple(mkeys), consensus_pre,
+            _consensus_sq_flat(params, opt.impl), G, dev, opt.impl))
+        out = {"params": params, "opt": opt_state}
+        if "comm" in state_G:
+            out["comm"] = comm_state
+        return out, metrics
 
     return round_
 
 
 def init_state(params, opt: Optimizer, n_groups: int,
-               layout: packing.Layout):
+               layout: packing.Layout,
+               exchange: Optional[comm_mod.Exchange] = None):
     """Packed grouped state: the params tree packed to (N,) and copied to
-    every one of the ``n_groups`` rows, plus the optimizer's state (the
-    exchanges ported so far carry no state of their own)."""
+    every one of the ``n_groups`` rows, plus the optimizer's state, plus
+    (for an exchange that carries state between rounds) the exchange's
+    state for the params and every moment stream under ``"comm"``."""
     buf_G = packing.pack(params, layout)[None].repeat(n_groups, 1)
-    return {"params": buf_G, "opt": opt.init(buf_G)}
+    state = {"params": buf_G, "opt": opt.init(buf_G)}
+    if exchange is not None and exchange.stateful:
+        moments = {k: state["opt"][k] for k in opt.moment_keys}
+        state["comm"] = exchange.init(buf_G, moments=moments or None)
+    return state
 
 
 def server_params(state_G, layout: packing.Layout):

@@ -96,6 +96,12 @@ def blocks_per_row(x: torch.Tensor, per_sm: int = 8) -> int:
     return max(1, min(want, -(-n // (4 * 256))))
 
 
+def grid_blocks(device: torch.device, units: int) -> int:
+    """Blocks of a grid-stride launch over ``units`` pieces of work: 8
+    resident on every SM, at most one per unit."""
+    return max(1, min(units, _sm_count(device.index) * 8))
+
+
 def stream_of(x: torch.Tensor) -> int:
     """Handle of the current stream on ``x``'s device, for a launcher."""
     return torch.cuda.current_stream(x.device).cuda_stream

@@ -43,6 +43,14 @@ SIGNATURES = {
         "repro_fused_adamw": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P,
                               _F, _F, _F, _F, _F, _F, _F),
     },
+    "exchange_epilogue": {
+        # x, x0, u, res, tau, out, res_out, w (host), g, n, hops, kind,
+        # blocks, stream
+        "repro_codec_mix": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
+                            _I64, _I64, _I64, _P),
+        # x, u, out, rows, blocks, stream
+        "repro_qdq_int8": (_P, _P, _P, _I64, _I64, _P),
+    },
     "sq_norm": {
         # x, partials, out, rows, n, blocks, stream
         "repro_sq_norm_groups": (_P, _P, _P, _I64, _I64, _I64, _P),

@@ -3,9 +3,13 @@ one device (counterpart of ``repro/launch/train.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch paper-lenet \\
         --packed --opt adamw --rounds 20
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --arch paper-mlp --reduced --packed --comm ring --codec int8 \\
+        --mix-rounds 2
 
 Runs on ``cuda`` unless ``--device cpu`` is given; on ``cuda`` the
-updates and norms launch the CUDA kernels of ``repro_torch/kernels``.
+updates, norms and exchange codecs launch the CUDA kernels of
+``repro_torch/kernels``.
 Round times are fenced with ``torch.cuda.synchronize()``. The flags are
 the reference launcher's that this slice covers; its other flags are
 refused with the ROADMAP.md item that will port them.
@@ -32,10 +36,6 @@ _NOT_PORTED = {
     "--cost-ratio": "telemetry (core/controller.py)",
     "--shard": "sharding/shardexec.py -> torch.distributed",
     "--hop-impl": "sharding/shardexec.py -> torch.distributed",
-    "--moment-codec": "comm/codecs.py and comm/exchange.py",
-    "--downlink-codec": "comm/codecs.py and comm/exchange.py",
-    "--mix-rounds": "comm/codecs.py and comm/exchange.py",
-    "--staleness": "comm/codecs.py and comm/exchange.py",
     "--overlap": "faults, push_sum, tiers and overlap",
     "--drop-rate": "faults, push_sum, tiers and overlap",
     "--stall-rate": "faults, push_sum, tiers and overlap",
@@ -55,9 +55,12 @@ _NOT_PORTED = {
 def build_run(arch: str, *, reduced: bool = False, groups: int = 4,
               t_inner: int = 4, t_i=None, opt: str = "sgd", lr: float = 0.05,
               impl: str = "auto", comm: str = "server", codec: str = "fp32",
+              moment_codec: str = "fp32", downlink_codec: str = "",
+              mix_rounds: int = 1, staleness: int = 1,
               metrics: str = "final", seed: int = 0, device="cuda"):
     """Model, packed layout, round and initial state of one run.
-    Returns (cfg, model, layout, round_fn, state)."""
+    Returns (cfg, model, layout, round_fn, state). The exchange's codecs
+    draw from codec seed 0, as the reference launcher's do."""
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
@@ -66,13 +69,16 @@ def build_run(arch: str, *, reduced: bool = False, groups: int = 4,
                         device)
     layout = packing.layout_of(params)
     optimizer = optim.get(opt, lr, packed=True, impl=impl)
-    exchange = comm_mod.get_exchange(comm, codec, groups)
+    exchange = comm_mod.get_exchange(
+        comm, codec, groups, mix_rounds=mix_rounds, staleness=staleness,
+        impl=impl, moment_codec=moment_codec, downlink_codec=downlink_codec)
     lcfg = lsgd.LocalSGDConfig(
         n_groups=groups, inner_steps=max(t_i) if t_i else t_inner,
         t_i=tuple(t_i) if t_i else None, metrics=metrics)
     round_fn = lsgd.make_local_round(model.loss, optimizer, lcfg,
                                      layout=layout, exchange=exchange)
-    state = lsgd.init_state(params, optimizer, groups, layout)
+    state = lsgd.init_state(params, optimizer, groups, layout,
+                            exchange=exchange)
     return cfg, model, layout, round_fn, state
 
 
@@ -99,9 +105,23 @@ def main(argv=None) -> None:
                          "kernels on a CUDA device, 'torch' takes the plain "
                          "versions")
     ap.add_argument("--comm", "--topology", dest="comm", default="server",
-                    help="exchange topology (ported: server, none)")
+                    help="exchange topology: server, ring, gossip, "
+                         "async_stale or none (push_sum and hierarchical "
+                         "are not ported yet)")
     ap.add_argument("--codec", default="fp32",
-                    help="wire codec (ported: fp32)")
+                    help="params wire codec: fp32, fp16, bf16, int8, "
+                         "int8z or topk")
+    ap.add_argument("--moment-codec", default="fp32",
+                    help="wire codec of every optimizer moment stream "
+                         "(fp32, fp16, bf16, int8, int8z)")
+    ap.add_argument("--downlink-codec", default="",
+                    help="codec of the server/async_stale broadcast reply "
+                         "(fp32, fp16, bf16, int8); default: the idealized "
+                         "broadcast priced at the uplink widths")
+    ap.add_argument("--mix-rounds", type=int, default=1,
+                    help="W hops per round on ring/gossip")
+    ap.add_argument("--staleness", type=int, default=1,
+                    help="staleness bound s of async_stale")
     ap.add_argument("--lr", type=float, default=0.05)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=1)
@@ -132,8 +152,10 @@ def main(argv=None) -> None:
         cfg, _, layout, rnd, state = build_run(
             args.arch, reduced=args.reduced, groups=args.groups,
             t_inner=args.t_inner, t_i=t_i, opt=args.opt, lr=args.lr,
-            impl=args.impl, comm=args.comm, codec=args.codec, seed=args.seed,
-            device=device)
+            impl=args.impl, comm=args.comm, codec=args.codec,
+            moment_codec=args.moment_codec,
+            downlink_codec=args.downlink_codec, mix_rounds=args.mix_rounds,
+            staleness=args.staleness, seed=args.seed, device=device)
     except NotImplementedError as e:
         ap.error(str(e))
     print(f"arch={cfg.name} params={layout.size / 1e6:.1f}M mode=localsgd "

@@ -41,6 +41,9 @@ class Optimizer:
     count_dependent: bool = False
     # moment streams of the state (DESIGN.md §10), in a fixed order
     moment_keys: Tuple[str, ...] = ()
+    # moment streams that are >= 0 (adamw's v): a lossy exchange projects
+    # them back onto [0, inf) after decoding
+    moment_nonneg: Tuple[str, ...] = ()
 
 
 def map_moments(f, opt_state):
@@ -101,7 +104,7 @@ def packed_adamw(lr: float, b1: float = 0.9, b2: float = 0.999,
                      "m": state["m"], "v": state["v"]}
 
     return Optimizer(init, step, "adamw", impl=impl, count_dependent=True,
-                     moment_keys=("m", "v"))
+                     moment_keys=("m", "v"), moment_nonneg=("v",))
 
 
 _PACKED = {"sgd": packed_sgd, "momentum": packed_momentum,

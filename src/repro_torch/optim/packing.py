@@ -11,6 +11,8 @@ axis) stack as leading buffer axes: a grouped tree packs to (G, N).
 
 ``unpack`` returns views of the buffer. Gradients are taken per leaf and
 written into a flat buffer, never by differentiating through ``unpack``.
+The buffer doubles as the wire format of the exchange: ``chunk_rows``
+cuts it into the rows of 256 that carry one int8 scale each.
 """
 from __future__ import annotations
 
@@ -107,6 +109,30 @@ def unpack(buf: torch.Tensor, layout: Layout):
         buf[..., o:o + s].view(*lead, *sh).to(dt)
         for o, s, sh, dt in zip(layout.offsets, layout.sizes, layout.shapes,
                                 layout.dtypes)])
+
+
+def chunk_rows(x: torch.Tensor, chunk: int) -> torch.Tensor:
+    """(..., N) buffer -> (rows, chunk) view for the per-chunk codecs: the
+    last axis zero-padded to a chunk multiple (zeros quantize to zero, so
+    the pad never leaks into the payload), every leading axis flattened
+    into the rows."""
+    return pad_rows(x, chunk).reshape(-1, chunk)
+
+
+def pad_rows(x: torch.Tensor, row: int) -> torch.Tensor:
+    """(..., N) buffer -> (..., n_rows, row): ``chunk_rows`` that keeps
+    the leading axes."""
+    pad = (-x.shape[-1]) % row
+    if pad:
+        x = torch.nn.functional.pad(x, (0, pad))
+    return x.reshape(*x.shape[:-1], -1, row)
+
+
+def unchunk_rows(rows: torch.Tensor, shape) -> torch.Tensor:
+    """Invert ``chunk_rows``: (rows, chunk) back to a ``shape`` buffer
+    (the zero padding on the last axis is sliced off)."""
+    lead = tuple(shape[:-1])
+    return rows.reshape(*lead, -1)[..., :shape[-1]]
 
 
 def value_and_leaf_grads(loss_fn, layout: Layout, buf, batch):

@@ -40,8 +40,30 @@ def test_cli_defaults_to_cuda_and_refuses_without_it():
 
 
 def test_cli_refuses_flags_outside_the_slice():
-    for extra in (["--threshold", "1e-3"], ["--comm", "ring"],
-                  ["--mode", "sync"]):
+    for extra in (["--threshold", "1e-3"], ["--comm", "push_sum"],
+                  ["--overlap"], ["--mode", "sync"]):
         out = _run(["--device", "cpu"] + extra)
         assert out.returncode != 0
         assert "not ported yet" in out.stderr, (extra, out.stderr)
+    out = _run(["--device", "cpu", "--comm", "push_sum"])
+    assert "push_sum" in out.stderr and "Queue A item 4" in out.stderr
+
+
+def test_cli_runs_lossy_exchanges_on_cpu():
+    """The lossy exchange flags: ring int8 at two hops over 4 groups,
+    async_stale with int8z moments and an int8 downlink; a downlink codec
+    on the ring is refused with the reference's reason."""
+    out = _run(["--device", "cpu", "--comm", "ring", "--codec", "int8",
+                "--mix-rounds", "2", "--groups", "4"])
+    assert out.returncode == 0, out.stderr
+    rounds = [l for l in out.stdout.splitlines() if l.startswith("round ")]
+    assert len(rounds) == 2
+    assert "comm ring/int8" in out.stdout
+    out = _run(["--device", "cpu", "--comm", "async_stale", "--codec",
+                "int8", "--opt", "adamw", "--lr", "1e-3", "--moment-codec",
+                "int8z", "--downlink-codec", "int8", "--staleness", "1"])
+    assert out.returncode == 0, out.stderr
+    assert "comm async_stale/int8" in out.stdout
+    out = _run(["--device", "cpu", "--comm", "ring", "--downlink-codec",
+                "int8"])
+    assert out.returncode != 0 and "no separate downlink" in out.stderr
