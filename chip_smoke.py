@@ -43,18 +43,64 @@ Phases, in order; any failure raises and the script exits non-zero:
    round, and each round's wire bytes must equal the count worked out
    here from the shapes;
 6. one more adamw round of the main path under ``torch.profiler``: the
-   device's busy share of the round and its device time by kernel.
+   device's busy share of the round and its device time by kernel;
+7. the serve path's two kernels against their plain versions on the card.
+   ``paged_decode_attention`` at paper-lenet's geometry (B 8, H = KV 12,
+   hd 64, page 16, 66 blocks, lengths over 1-1056 with page edges, a slot
+   on the trash row; float32 and bfloat16 queries), qwen3-32b's head
+   geometry (KV 8, g 8, hd 128, page 16, lengths up to 4096) and tiny
+   ragged ones (GQA, MHA, MQA); ``flash_attention`` at paper-lenet's
+   prefill (1, 12, 1024, 64) float32, (2, 12, 2048, 64), a bfloat16 case,
+   GQA at qwen3-32b's head_dim 128, and tiny shapes (unequal blocks, a
+   sequence that is no multiple of the kernel's 64-row tile).
+   Tolerances: float32 rtol 1e-5 / atol 1e-6 (the sums run in another
+   order, so bits may differ), flash against its plain version evaluated
+   in float64 (the float32 plain version's own error, logged beside the
+   kernel's, is of the order of atol at head_dim 128); bfloat16 outputs
+   within one bfloat16 step (rtol 2**-7, atol 1e-6) of the float32 plain
+   version on the same bfloat16 inputs, and flash also within the
+   reference's own bfloat16 tolerance (atol 2e-2, rtol 2e-1) of its plain
+   version, whose probabilities round to bfloat16. Each is timed (CUDA events, median of
+   20) at the serve path's shapes beside its bound, its plain version and,
+   for flash, ``scaled_dot_product_attention(is_causal=True)`` (a
+   yardstick the port never calls; no single PyTorch call computes paged
+   attention);
+8. the serve path at full width: phase 5's fp32 adamw server params, saved
+   with ``checkpoint/io.save`` to a temporary directory and restored
+   through ``serve.handoff.restore_params``, served as paper-lenet with
+   ``attn_impl="pallas"`` (``EngineConfig(n_slots=8, page_size=16,
+   max_prompt=1024, max_new=32)``: bucket 1024, 66 blocks, 8,449 pool rows
+   of 12,288 floats) under ``poisson_workload(rate=50, n=24,
+   prompt_len=(512, 1024), max_new=(16, 32), vocab=32000, seed=0)``, with
+   the continuous and then the static policy, and each request replayed
+   alone at the same slot count. Every request's tokens must be equal in
+   all three; with the counts set to 0 before the continuous run,
+   ``flash_attention`` must be launched 8 times per prefill and
+   ``paged_decode_attention`` 8 times per decode step. Then ``python -m
+   repro_torch.launch.serve`` (the normal entry point, default
+   ``attn_impl``) on the same checkpoint with ``--check-parity`` must exit
+   0. Between the two, three decode steps over 8 active slots run under
+   ``torch.profiler``: the device's busy share and time by kernel;
+9. the kernels against their plain versions on the whole path: 8 slots
+   prefilled at the 1024 bucket and 4 decode steps, once with
+   ``impl="torch"`` (both plain versions, no kernel launched) and once
+   with the kernels, the kernel run fed the plain run's tokens: the
+   logits must agree at rtol 1e-4 / atol 1e-5 and the greedy tokens
+   must be equal, except where the plain run's top-2 logit gap lies
+   within that tolerance (printed).
 
 The line before the last is one JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -83,6 +129,11 @@ SOURCES = {
                   "src/repro/kernels/exchange_epilogue.py:204"),
     "qdq_int8": ("src/repro_torch/kernels/csrc/exchange_epilogue.cu",
                  "src/repro/kernels/exchange_epilogue.py:232"),
+    "paged_decode_attention": (
+        "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention.py:159"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:84"),
 }
 # bytes moved (each input read once, each output written once) and
 # float32 operations, per element of the (G, N) buffer. codec_mix as the
@@ -541,9 +592,12 @@ def expected_wire(run, n):
     return senders * (up + down)
 
 
-def main_path(torch, K, ee):
+def main_path(torch, K, ee, ckpt):
     """Phase 5: paper-lenet at full width through the launcher's builder,
-    server/fp32 and then the lossy exchange."""
+    server/fp32 and then the lossy exchange. The first run's server params
+    are saved to ``ckpt`` for the serve phases; they are returned."""
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.core import localsgd as lsgd
     from repro_torch.data.synthetic import TokenPipeline
     from repro_torch.launch.train import build_run
 
@@ -641,13 +695,27 @@ def main_path(torch, K, ee):
             log(f"main path {tag}: loss {losses}")
             if not losses[2] < losses[0]:
                 fail(f"{tag}: loss did not fall over 3 rounds: {losses}")
+        if run is PLAN[0]:
+            server = {k: v.clone() for k, v in zip(
+                *_flat(lsgd.server_params(state, layout)))}
+            ckpt_io.save(ckpt, lsgd.server_params(state, layout),
+                         metadata={"arch": cfg.name, "rounds": rounds,
+                                   "mode": "localsgd"})
+            log(f"main path {tag}: server params -> {ckpt}.npz")
         del state, rnd
         torch.cuda.empty_cache()
     total = counts()
     log(f"main path launches {total} (expected {expected})")
     if total != expected:
         fail(f"launch counts {total} != expected {expected}")
-    return total
+    return total, server
+
+
+def _flat(params):
+    """(keys, leaves) of a params tree, keys "/"-joined."""
+    from repro_torch import tree
+    paths, leaves = tree.flatten(params)
+    return ["/".join(p) for p in paths], leaves
 
 
 def profile_round(torch):
@@ -699,6 +767,440 @@ def profile_round(torch):
     torch.cuda.empty_cache()
 
 
+ATTN_TOL = dict(rtol=1e-5, atol=1e-6)          # float32 against plain
+BF16_STEP = dict(rtol=2.0 ** -7, atol=1e-6)     # one bfloat16 step
+BF16_REF = dict(rtol=2e-1, atol=2e-2)           # the reference's bf16 test
+PATH_TOL = dict(rtol=1e-4, atol=1e-5)           # logits, kernels vs plain
+LENET_HEADS = (12, 64)                          # paper-lenet: KV = H, hd
+SERVE = dict(n_slots=8, page_size=16, max_prompt=1024, max_new=32)
+WORKLOAD = dict(rate=50, n=24, prompt_len=(512, 1024), max_new=(16, 32),
+                vocab=32000, seed=0)
+
+
+def _decode_case(torch, gen, B, n_kv, g, hd, ps, nblk, lengths, trash=()):
+    """A random pool with permuted page tables (real rows from 1 on),
+    random queries, and the given slots pointed at trash row 0."""
+    dev = torch.device("cuda")
+    used = ps * n_kv * hd
+    n_pages = 1 + 2 * B * nblk
+    pool = torch.randn((n_pages, -(-used // 256) * 256), generator=gen,
+                       device=dev)
+    perm = (torch.randperm(n_pages - 1, generator=gen, device=dev) + 1).to(
+        torch.int32)
+    rows_k = perm[:B * nblk].reshape(B, nblk).clone()
+    rows_v = perm[B * nblk:].reshape(B, nblk).clone()
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    for b in trash:
+        rows_k[b] = rows_v[b] = 0
+        lengths[b] = 1
+    q = torch.randn((B, n_kv * g, hd), generator=gen, device=dev)
+    return q, pool, rows_k, rows_v, lengths
+
+
+def _decode_bound(q, n_kv, lengths, nblk):
+    """Bytes: q and out, each live token's K and V of every KV head once,
+    the two page tables and the lengths; operations: q.k and p.v, 2 flops
+    per multiply-add, over the live tokens."""
+    B, H, hd = q.shape
+    live = int(lengths.sum())
+    nbytes = 2 * q.numel() * 4 + live * n_kv * hd * 4 * 2 + B * (
+        2 * nblk + 1) * 4
+    return bound_of(nbytes, 4 * live * H * hd)
+
+
+def _flash_bound(B, H, KV, S, hd, itemsize=4):
+    """Bytes: q, out (B, H, S, hd) and k, v (B, KV, S, hd) once;
+    operations: the causal half of QK^T and P@V, 2 flops per
+    multiply-add."""
+    nbytes = (2 * B * H + 2 * B * KV) * S * hd * itemsize
+    return bound_of(nbytes, 4 * hd * S * (S + 1) // 2 * B * H)
+
+
+def check_attention_kernels(torch, results):
+    """Phase 7: the serve path's kernels against their plain versions,
+    and their times at the path's shapes."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    H, hd = LENET_HEADS
+    lenet = dict(B=8, n_kv=H, g=1, hd=hd, ps=16, nblk=66)
+    decode_cases = [
+        (lenet, [1, 15, 16, 17, 512, 1023, 1056, 1], (7,)),
+        (dict(B=4, n_kv=8, g=8, hd=128, ps=16, nblk=256),
+         [4096, 1, 2049, 17], ()),
+        (dict(B=3, n_kv=2, g=2, hd=8, ps=4, nblk=5), [1, 7, 20], (1,)),
+        (dict(B=5, n_kv=4, g=1, hd=16, ps=8, nblk=3), [24, 9, 1, 8, 16], ()),
+        (dict(B=2, n_kv=1, g=8, hd=32, ps=4, nblk=2), [5, 8], ()),
+    ]
+
+    def note(name, err):
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+
+    for kw, lengths, trash in decode_cases:
+        q, pool, rk, rv, ln = _decode_case(torch, gen, **kw,
+                                           lengths=lengths, trash=trash)
+        args = (pool, rk, rv, ln)
+        ak = dict(page_size=kw["ps"], n_kv=kw["n_kv"])
+        got = da.paged_decode_attention(q, *args, impl="cuda", **ak)
+        want = da.paged_decode_attention(q, *args, impl="torch", **ak)
+        note("paged_decode_attention", compare(
+            f"paged_decode_attention {kw} lengths {lengths}", got, want,
+            **ATTN_TOL))
+        qb = q.to(torch.bfloat16)
+        got = da.paged_decode_attention(qb, *args, impl="cuda", **ak)
+        want = da.paged_decode_attention(qb.float(), *args, impl="torch",
+                                         **ak).to(torch.bfloat16)
+        err = compare(f"paged_decode_attention bf16 {kw}", got.float(),
+                      want.float(), **BF16_STEP)
+        log(f"paged_decode_attention agrees with its plain version at {kw}, "
+            f"lengths {lengths}, trash slots {list(trash)} (bf16 q: max "
+            f"abs err {err:.3e})")
+
+    # flash: (B, H, KV, S, hd, dtype, block_q, block_k)
+    flash_cases = [
+        (1, 12, 12, 1024, 64, torch.float32, 128, 128),
+        (2, 12, 12, 2048, 64, torch.float32, 128, 128),
+        (1, 12, 12, 1024, 64, torch.bfloat16, 128, 128),
+        (1, 8, 2, 384, 128, torch.float32, 128, 128),
+        (1, 2, 2, 256, 64, torch.float32, 64, 128),
+        (2, 1, 1, 64, 16, torch.float32, 64, 64),
+        (1, 3, 3, 40, 32, torch.float32, 128, 128),
+        (1, 2, 1, 16, 8, torch.float32, 16, 16),
+    ]
+    for B, nh, kv, S, d, dt, bq, bk in flash_cases:
+        q = torch.randn((B, nh, S, d), generator=gen, device="cuda").to(dt)
+        k = torch.randn((B, kv, S, d), generator=gen, device="cuda").to(dt)
+        v = torch.randn((B, kv, S, d), generator=gen, device="cuda").to(dt)
+        kw = dict(block_q=bq, block_k=bk)
+        tag = f"flash_attention {(B, nh, kv, S, d)} {dt} blocks {(bq, bk)}"
+        got = fa.flash_attention(q, k, v, impl="cuda", **kw)
+        want = fa.flash_attention(q, k, v, impl="torch", **kw)
+        if dt == torch.float32:
+            truth = ref.flash_attention_ref(q.double(), k.double(), v.double())
+            err = compare(tag + " (float64 plain)", got.double(), truth,
+                          **ATTN_TOL)
+            note("flash_attention", err)
+            log(f"{tag}: max abs err {err:.3e} against the float64 plain "
+                f"version; the float32 plain version's own "
+                f"{(want.double() - truth).abs().max().item():.3e}")
+            del truth
+        else:
+            e1 = compare(tag + " (plain, bf16 p)", got.float(), want.float(),
+                         **BF16_REF)
+            f32 = fa.flash_attention(q.float(), k.float(), v.float(),
+                                     impl="torch", **kw).to(dt)
+            e2 = compare(tag + " (float32 plain)", got.float(), f32.float(),
+                         **BF16_STEP)
+            log(f"{tag}: max abs err {e1:.3e} against the plain version, "
+                f"{e2:.3e} against the float32 plain version")
+        log(f"flash_attention agrees with its plain version at {tag}")
+        del q, k, v, got, want
+
+    # times at the serve path's shapes: the decode step over 8 slots with
+    # lengths from the workload's range, the prefill at the 1024 bucket
+    rng_len = torch.randint(512 + 16, 1056 + 1, (8,), generator=torch.Generator(
+    ).manual_seed(0)).tolist()
+    q, pool, rk, rv, ln = _decode_case(torch, gen, **lenet, lengths=rng_len)
+    ak = dict(page_size=16, n_kv=H)
+    r = results["paged_decode_attention"]
+    r["ms"] = time_ms(lambda: da.paged_decode_attention(
+        q, pool, rk, rv, ln, impl="cuda", **ak), torch)
+    r["plain_ms"] = time_ms(lambda: da.paged_decode_attention(
+        q, pool, rk, rv, ln, impl="torch", **ak), torch)
+    r["library_ms"] = None
+    r["bound_ms"], r["bound_by"] = _decode_bound(q, H, ln, 66)
+    log(f"paged_decode_attention B 8, lengths {rng_len} kernel_ms "
+        f"{r['ms']:.4f} bound_ms {r['bound_ms']:.4f} ({r['bound_by']}) "
+        f"plain_ms {r['plain_ms']:.4f} library_ms none (no single PyTorch "
+        f"call) max_abs_err {r['max_abs_err']:.3e}")
+    del q, pool
+    B, S = 1, 1024
+    q, k, v = (torch.randn((B, H, S, hd), generator=gen, device="cuda")
+               for _ in range(3))
+    r = results["flash_attention"]
+    r["ms"] = time_ms(lambda: fa.flash_attention(q, k, v, impl="cuda"), torch)
+    r["plain_ms"] = time_ms(lambda: fa.flash_attention(q, k, v, impl="torch"),
+                            torch)
+    r["library_ms"] = time_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True), torch)
+    r["bound_ms"], r["bound_by"] = _flash_bound(B, H, H, S, hd)
+    log(f"flash_attention {(B, H, S, hd)} f32 kernel_ms {r['ms']:.4f} "
+        f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}) plain_ms "
+        f"{r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} (sdpa causal) "
+        f"max_abs_err {r['max_abs_err']:.3e}")
+    for shape in ((2, 12, 2048, 64),):
+        q2, k2, v2 = (torch.randn(shape, generator=gen, device="cuda")
+                      for _ in range(3))
+        ms = time_ms(lambda: fa.flash_attention(q2, k2, v2, impl="cuda"),
+                     torch)
+        lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q2, k2, v2, is_causal=True), torch)
+        bms, by = _flash_bound(shape[0], shape[1], shape[1], shape[2],
+                               shape[3])
+        log(f"flash_attention {shape} f32 kernel_ms {ms:.4f} bound_ms "
+            f"{bms:.4f} ({by}) library_ms {lib:.4f}")
+        del q2, k2, v2
+    del q, k, v
+    torch.cuda.empty_cache()
+
+
+def _serve_model(torch, ckpt, server):
+    """paper-lenet with attn_impl="pallas" and phase 5's params through
+    the handoff; the restored leaves must equal the saved ones."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.serve import restore_params
+
+    cfg = dataclasses.replace(get_config("paper-lenet"), attn_impl="pallas")
+    model = build_model(cfg)
+    params = restore_params(ckpt, model, device="cuda")
+    keys, leaves = _flat(params)
+    if keys != list(server) or not all(
+            torch.equal(a, server[k]) for k, a in zip(keys, leaves)):
+        fail("the restored params differ from phase 5's server params")
+    return model, params
+
+
+def serve_path(torch, ckpt, server, tmp):
+    """Phase 8: the serve path at full width. Returns the launch counts of
+    the continuous run."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.obs.trace import Trace
+    from repro_torch.serve import (Engine, EngineConfig, Request,
+                                   drive_workload, poisson_workload)
+
+    model, params = _serve_model(torch, ckpt, server)
+    reqs = poisson_workload(**WORKLOAD)
+
+    def fresh():
+        return [Request(r.rid, r.prompt.copy(), r.max_new, r.arrival)
+                for r in reqs]
+
+    eng = Engine(model, params, EngineConfig(**SERVE))
+    g = eng.geom
+    if (eng.bucket, g.max_blocks, g.page_elems, g.n_pages) != \
+            (1024, 66, 12_288, 8_449):
+        fail(f"serve geometry {eng.bucket} {g}")
+    eng.warmup()
+    trace_path = os.path.join(tmp, "serve.jsonl")
+    eng.trace = Trace(trace_path, meta={"launcher": "chip_smoke",
+                                        "arch": model.cfg.name})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    da.launches = fa.launches = 0
+    t0 = time.perf_counter()
+    done, makespan = drive_workload(eng, fresh())
+    wall = time.perf_counter() - t0
+    counts = {"paged_decode_attention": da.launches,
+              "flash_attention": fa.launches}
+    eng.trace.close()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steps = [json.loads(line) for line in open(trace_path)]
+    steps = [s for s in steps if s["kind"] == "step"]
+    prefills = sum(s["metrics"]["admitted"] for s in steps)
+    decode = [s["phase_s"]["decode_step"] for s in steps
+              if "decode_step" in s["phase_s"]]
+    per_prefill = [s["phase_s"]["prefill"] / s["metrics"]["admitted"]
+                   for s in steps if s["metrics"]["admitted"]]
+    want = {"paged_decode_attention": 8 * len(decode),
+            "flash_attention": 8 * prefills}
+    if prefills != WORKLOAD["n"] or counts != want:
+        fail(f"serve launches {counts}, expected {want} ({prefills} "
+             f"prefills, {len(decode)} decode steps)")
+    cont = {c.rid: c.tokens for c in done}
+    for r in reqs:
+        toks = cont.get(r.rid)
+        if toks is None or len(toks) != min(r.max_new, SERVE["max_new"]) or \
+                not all(0 <= t < 32000 for t in toks):
+            fail(f"serve rid {r.rid}: tokens {toks}")
+    committed = sum(len(t) for t in cont.values())
+    lat = sorted(c.latency for c in done)
+    q = statistics.quantiles
+    log(f"serve paper-lenet continuous: {len(done)} requests, {committed} "
+        f"tokens in {makespan:.4f} s virtual ({committed / makespan:.1f} "
+        f"tok/s committed; {wall:.4f} s wall), latency p50 "
+        f"{statistics.median(lat):.4f} s p99 {q(lat, n=100)[98]:.4f} s, "
+        f"decode step ms median {statistics.median(decode) * 1e3:.3f} p99 "
+        f"{q(decode, n=100)[98] * 1e3:.3f} over {len(decode)} steps, "
+        f"prefill ms median {statistics.median(per_prefill) * 1e3:.3f} "
+        f"(bucket 1024), peak memory {peak:.2f} GiB")
+    log(f"serve launches {counts}: 8 per prefill ({prefills}) and 8 per "
+        f"decode step ({len(decode)})")
+    del eng
+    torch.cuda.empty_cache()
+
+    stat = Engine(model, params, EngineConfig(policy="static", **SERVE))
+    sdone, smakespan = drive_workload(stat, fresh())
+    scommitted = sum(len(c.tokens) for c in sdone)
+    slat = sorted(c.latency for c in sdone)
+    log(f"serve paper-lenet static: {scommitted / smakespan:.1f} tok/s "
+        f"committed, latency p50 {statistics.median(slat):.4f} s p99 "
+        f"{q(slat, n=100)[98]:.4f} s")
+    bad = [c.rid for c in sdone if c.tokens != cont[c.rid]]
+    if len(sdone) != len(reqs) or bad:
+        fail(f"static policy tokens differ for rids {bad}")
+    del stat
+    torch.cuda.empty_cache()
+
+    iso = Engine(model, params, EngineConfig(**SERVE))
+    bad = []
+    for r in fresh():
+        if iso.run([r])[0].tokens != cont[r.rid]:
+            bad.append(r.rid)
+    if bad:
+        fail(f"isolated replay tokens differ for rids {bad}")
+    log(f"serve parity: all {len(reqs)} requests' tokens equal under the "
+        "continuous and static policies and replayed alone")
+    del iso
+    profile_decode_steps(torch, Engine(model, params, EngineConfig(**SERVE)),
+                         fresh()[:SERVE["n_slots"]])
+    del params
+    torch.cuda.empty_cache()
+
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           "paper-lenet", "--from-checkpoint", ckpt, "--slots", "8",
+           "--page-size", "16", "--prompt-max", "128", "--gen-max", "32",
+           "--requests", "16", "--check-parity"]
+    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=600, env=dict(os.environ, PYTHONPATH=SRC))
+    for line in (out.stdout + out.stderr).strip().splitlines()[-8:]:
+        log(f"launcher: {line}")
+    if out.returncode != 0:
+        fail(f"python -m repro_torch.launch.serve exited {out.returncode}")
+    return counts
+
+
+def profile_decode_steps(torch, eng, reqs):
+    """Three decode steps over 8 active slots under torch.profiler (after
+    the launch counts are read): the device's busy share of the fenced
+    steps and the device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for r in reqs:
+        eng.submit(r)
+    eng.step()                  # the 8 prefills and a first decode step
+    eng.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            eng.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # the engine's phases are record_function ranges, which the profiler
+    # also reports on the device: they are not kernels
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.key not in ("prefill", "decode_step")]
+    if not kernels:
+        log("profile: the profiler captured no device time")
+        return
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    log(f"profile: 3 serve decode steps (8 active slots) {wall_ms:.1f} ms "
+        f"fenced (profiler on), device busy {busy_ms:.2f} ms = "
+        f"{busy_ms / wall_ms:.1%}, {sum(e.count for e in kernels) // 3} "
+        "kernel launches per step")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"profile:   {e.self_device_time_total / 1e3:8.3f} ms "
+            f"x{e.count:<5d} {e.key[:100]}")
+
+
+def serve_reference_check(torch, ckpt, server):
+    """Phase 9: 8 slots prefilled at the 1024 bucket and 4 decode steps,
+    with both plain versions (no launch) and with the kernels fed the
+    plain run's tokens; logits and greedy tokens compared."""
+    import numpy as np
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.serve import decode as sdecode
+    from repro_torch.serve import poisson_workload
+    from repro_torch.serve.paging import FreeList
+
+    model, params = _serve_model(torch, ckpt, server)
+    reqs = poisson_workload(**WORKLOAD)[:SERVE["n_slots"]]
+    geom = sdecode.geom_for(model, n_slots=SERVE["n_slots"], page_size=16,
+                            max_len=1024 + SERVE["max_new"])
+    runs = {}
+    for impl in ("torch", "cuda"):
+        progs = sdecode.build_programs(model, geom, impl)
+        pool, free = geom.pool("cuda"), FreeList(geom.n_pages)
+        before = (da.launches, fa.launches)
+        nk = geom.n_layers_kv * geom.max_blocks
+        tables = [free.alloc(geom.rows_per_slot) for _ in reqs]
+        rk = np.stack([t[:nk].reshape(geom.n_layers_kv, -1) for t in tables])
+        rv = np.stack([t[nk:].reshape(geom.n_layers_kv, -1) for t in tables])
+        logits, pos = [], []
+        for i, r in enumerate(reqs):
+            toks = np.zeros((1, 1024), np.int32)
+            toks[0, :len(r.prompt)] = r.prompt
+            lg, pool = progs.prefill_logits(params, pool, toks, len(r.prompt),
+                                            rk[i], rv[i])
+            logits.append(lg)
+            pos.append(len(r.prompt))
+        steps = [torch.cat(logits)]
+        pos = np.asarray(pos, np.int32)
+        active = np.ones(len(reqs), bool)
+        for n in range(4):
+            feed = runs["torch"][n].argmax(-1) if impl == "cuda" else \
+                steps[-1][:, :32000].argmax(-1)
+            lg, pool = progs.step_logits(params, pool, feed.cpu().numpy()
+                                         .astype(np.int32), pos + n, rk, rv,
+                                         active)
+            steps.append(lg)
+        launched = (da.launches - before[0], fa.launches - before[1])
+        want = (0, 0) if impl == "torch" else (8 * 4, 8 * len(reqs))
+        if launched != want:
+            fail(f"serve check impl={impl}: launches {launched}, want {want}")
+        runs[impl] = [s[:, :32000] for s in steps]
+        del pool
+    flips = 0
+    for n, (plain, kern) in enumerate(zip(runs["torch"], runs["cuda"])):
+        what = "prefill" if n == 0 else f"decode step {n}"
+        err = compare(f"serve logits, {what} (kernels vs plain)", kern,
+                      plain, **PATH_TOL)
+        top2 = plain.topk(2, dim=-1).values
+        tied = (top2[:, 0] - top2[:, 1]) <= (PATH_TOL["atol"] + PATH_TOL[
+            "rtol"] * top2[:, 0].abs())
+        for b in torch.nonzero(kern.argmax(-1) != plain.argmax(-1)).flatten():
+            b = int(b)
+            gap = float(top2[b, 0] - top2[b, 1])
+            if not bool(tied[b]):
+                fail(f"serve {what} slot {b}: kernel token "
+                     f"{int(kern[b].argmax())} != plain {int(plain[b].argmax())}"
+                     f" with top-2 gap {gap:.3e}")
+            flips += 1
+            log(f"serve {what} slot {b}: token differs where the plain "
+                f"run's top-2 gap {gap:.3e} is within the tolerance")
+        log(f"serve {what}: logits max abs err {err:.3e} (kernels vs plain)")
+    log(f"serve check: kernels and plain versions agree over the prefill "
+        f"and 4 decode steps of {len(reqs)} slots ({flips} near-tie token "
+        "differences)")
+    del params
+    torch.cuda.empty_cache()
+
+
+def _kernel_name(mangled):
+    """A ptxas entry name, short: the kernel's name after its namespace
+    and its raw template arguments (``paged_decode_kernel ILi64ELi1EE``:
+    hd 64, g 1), or the name as given."""
+    import re
+    ns = re.match(r"_ZN(\d+)", mangled)
+    at = ns.end() + int(ns.group(1)) if ns else 0
+    n = re.match(r"\d+", mangled[at:])
+    if not ns or not n:
+        return mangled
+    at += n.end()
+    name, rest = mangled[at:at + int(n.group())], mangled[at + int(n.group()):]
+    return name + (" " + rest[:rest.find("EE") + 2] if rest[:1] == "I"
+                   else "")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -726,22 +1228,35 @@ def main() -> int:
 
     t0 = time.perf_counter()
     build.load_all()
-    log(f"build: {time.perf_counter() - t0:.1f} s for "
-        f"{sorted(build.SIGNATURES)}")
+    built = (f"build: {time.perf_counter() - t0:.1f} s for "
+             f"{sorted(build.SIGNATURES)}")
+    log(built)
     for stem in sorted(build.SIGNATURES):
-        entry = "?"
+        entry, spill = "?", ""
         for line in build.build_log(stem).splitlines():
             if "Compiling entry function" in line:
-                entry = line.split("'")[1] if "'" in line else line
-            elif "registers" in line or "spill" in line:
-                log(f"  {stem} {entry}: {line.strip()}")
+                entry = _kernel_name(line.split("'")[1] if "'" in line
+                                     else line)
+            elif "spill" in line:
+                spill = line.split(":", 1)[-1].strip()
+            elif "registers" in line:
+                log(f"  {stem} {entry}: {line.split(':', 1)[-1].strip()}; "
+                    f"{spill}")
 
     results = check_kernels(torch, K, ref)
     check_exchange_kernels(torch, exchange_epilogue, results)
     reference_check(torch)
-    counts = main_path(torch, K, exchange_epilogue)
-    profile_round(torch)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        ckpt = os.path.join(tmp, "paper-lenet")
+        counts, server = main_path(torch, K, exchange_epilogue, ckpt)
+        profile_round(torch)
+        check_attention_kernels(torch, results)
+        counts.update(serve_path(torch, ckpt, server, tmp))
+        serve_reference_check(torch, ckpt, server)
 
+    # again at the end, where a tail of the output still holds them
+    log(built)
+    log(smi)
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         r = results[name]

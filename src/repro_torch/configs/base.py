@@ -59,7 +59,7 @@ class ArchConfig:
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
     embed_impl: str = "onehot"
-    attn_impl: str = "blocked"  # blocked (plain torch) | pallas (not ported)
+    attn_impl: str = "blocked"  # blocked (plain torch) | pallas (flash kernel)
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
 

@@ -51,6 +51,18 @@ SIGNATURES = {
         # x, u, out, rows, blocks, stream
         "repro_qdq_int8": (_P, _P, _P, _I64, _I64, _P),
     },
+    "decode_attention": {
+        # q, pool, rows_k, rows_v, lengths, out, B, n_kv, g, hd, page_size,
+        # nblk, page_elems, stream, scale
+        "repro_paged_decode_attention": (_P, _P, _P, _P, _P, _P, _I64, _I64,
+                                         _I64, _I64, _I64, _I64, _I64, _P,
+                                         _F),
+    },
+    "flash_attention": {
+        # q, k, v, out, B, H, KV, S, hd, bf16, stream, scale
+        "repro_flash_attention": (_P, _P, _P, _P, _I64, _I64, _I64, _I64,
+                                  _I64, _I64, _P, _F),
+    },
     "sq_norm": {
         # x, partials, out, rows, n, blocks, stream
         "repro_sq_norm_groups": (_P, _P, _P, _I64, _I64, _I64, _P),

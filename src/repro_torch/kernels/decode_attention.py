@@ -1,0 +1,81 @@
+"""Paged decode attention (counterpart of
+``repro/kernels/decode_attention.py``).
+
+One decode step's GQA attention for every batch slot against the K and V
+pages of the serve pool (``serve/paging.py``): q (B, H, hd) against pool
+rows ``rows_k[b, j]`` / ``rows_v[b, j]``, masked at each slot's length.
+On a CUDA tensor it launches ``repro_paged_decode_attention``
+(``csrc/decode_attention.cu``); on a CPU tensor it takes
+``ref.paged_decode_attention_ref``.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import build, resolve_impl, stream_of
+from repro_torch.kernels.ref import paged_decode_attention_ref
+
+launches = 0     # kernel launches since the count was last set to 0
+DTYPES = (torch.float32, torch.bfloat16)
+HEAD_DIMS = (8, 16, 32, 64, 128)     # the kernel's instantiations
+GROUPS = (1, 2, 4, 8)                # query heads per KV head
+
+
+def _check(q, pool, rows_k, rows_v, lengths, page_size, n_kv):
+    if q.dim() != 3 or q.dtype not in DTYPES:
+        raise ValueError(f"q must be (B, H, hd) float32 or bfloat16, got "
+                         f"{q.dtype} {tuple(q.shape)}")
+    B, H, hd = q.shape
+    if H % n_kv:
+        raise ValueError(f"{H} query heads are not a multiple of {n_kv} "
+                         "KV heads")
+    if pool.dim() != 2 or pool.dtype != torch.float32:
+        raise ValueError("pool must be (n_pages, page_elems) float32")
+    if pool.shape[1] < page_size * n_kv * hd:
+        raise ValueError(f"pool rows of {pool.shape[1]} elements cannot "
+                         f"hold a page of {page_size * n_kv * hd}")
+    for name, t, shape in (("rows_k", rows_k, (B, rows_k.shape[-1])),
+                           ("rows_v", rows_v, (B, rows_k.shape[-1])),
+                           ("lengths", lengths, (B,))):
+        if t.dtype != torch.int32 or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be int32 {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    for t in (pool, rows_k, rows_v, lengths):
+        if t.device != q.device:
+            raise ValueError(f"tensors on {t.device} and {q.device}")
+
+
+def paged_decode_attention(q, pool, rows_k, rows_v, lengths, *,
+                           page_size: int, n_kv: int, impl="auto"):
+    """q (B, H, hd) float32 or bfloat16; pool (n_pages, page_elems)
+    float32; rows_k/rows_v (B, nblk) int32 pool-row tables; lengths (B,)
+    int32 (>= 1). Returns (B, H, hd) in q.dtype."""
+    global launches
+    _check(q, pool, rows_k, rows_v, lengths, page_size, n_kv)
+    B, H, hd = q.shape
+    scale = 1.0 / math.sqrt(hd)
+    if resolve_impl(impl, q.device) == "torch":
+        return paged_decode_attention_ref(q, pool, rows_k, rows_v, lengths,
+                                          page_size=page_size, n_kv=n_kv,
+                                          scale=scale)
+    if B > 65535 or hd not in HEAD_DIMS or H // n_kv not in GROUPS:
+        raise ValueError(
+            f"paged_decode_attention: the kernel takes at most 65535 slots, "
+            f"head_dim in {HEAD_DIMS} and {GROUPS} query heads per KV head; "
+            f"got B {B}, head_dim {hd}, {H // n_kv}")
+    # the kernel computes in float32: a bfloat16 query is widened (exact)
+    # and the result rounded back, as the kernel's store would
+    qf = q.to(torch.float32).contiguous()
+    pool = pool.contiguous()
+    rows_k, rows_v = rows_k.contiguous(), rows_v.contiguous()
+    lengths = lengths.contiguous()
+    out = torch.empty_like(qf)
+    build.launch("decode_attention", "repro_paged_decode_attention",
+                 qf.data_ptr(), pool.data_ptr(), rows_k.data_ptr(),
+                 rows_v.data_ptr(), lengths.data_ptr(), out.data_ptr(), B,
+                 n_kv, H // n_kv, hd, page_size, rows_k.shape[1],
+                 pool.shape[1], stream_of(q), scale)
+    launches += 1
+    return out.to(q.dtype)

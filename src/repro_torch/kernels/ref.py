@@ -124,3 +124,67 @@ def codec_mix_ref(x, x0, *, kind, u=None, w=None, hops=1, chunk=0,
                                    None if u is None else u[h], chunk)
         y = _mix(ref, w)
     return y[:, :n].contiguous(), None
+
+
+# -- attention (counterparts of repro/kernels/decode_attention.py and
+# repro/kernels/ref.py flash_attention_ref)
+
+NEG_INF = -1e30
+
+
+def flash_attention_ref(q, k, v, causal=True):
+    """q (B,H,S,hd), k/v (B,KV,S,hd) with KV dividing H -> (B,H,S,hd):
+    plain softmax attention. The KV heads are repeated to H, as the
+    reference's caller does before its kernel; the probabilities are cast
+    to q's type before the product with v, as the reference's oracle
+    does."""
+    B, H, S, hd = q.shape
+    if k.shape[1] != H:
+        k = k.repeat_interleave(H // k.shape[1], dim=1)
+        v = v.repeat_interleave(H // v.shape[1], dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k).to(torch.float32)
+    s = s / torch.sqrt(s.new_tensor(float(hd)))
+    if causal:
+        mask = torch.tril(torch.ones((S, S), dtype=torch.bool,
+                                     device=q.device))
+        s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p.to(q.dtype), v)
+
+
+def paged_decode_attention_ref(q, pool, rows_k, rows_v, lengths, *,
+                               page_size: int, n_kv: int, scale: float):
+    """One-token GQA attention over the paged pool: q (B, H, hd); pool
+    (n_pages, page_elems) float32; rows_k/rows_v (B, nblk) int32 pool rows;
+    lengths (B,) int32 >= 1. Returns (B, H, hd) in q.dtype.
+
+    The reference's page loop (``_cell_update`` over the pages, per slot):
+    per page the masked scores, the online-softmax update of m, l and acc,
+    and pages wholly past a slot's length leave its state alone. The loop
+    stops after the last page any slot needs."""
+    B, H, hd = q.shape
+    g = H // n_kv
+    used = page_size * n_kv * hd
+    qf = q.to(torch.float32).reshape(B, n_kv, g, hd)
+    m = torch.full((B, n_kv, g), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, n_kv, g, hd), dtype=torch.float32, device=q.device)
+    live = -(-int(lengths.max()) // page_size)
+    for j in range(min(live, rows_k.shape[1])):
+        k = pool[rows_k[:, j].long(), :used].reshape(B, page_size, n_kv, hd)
+        v = pool[rows_v[:, j].long(), :used].reshape(B, page_size, n_kv, hd)
+        cols = j * page_size + torch.arange(page_size, device=q.device)
+        s = torch.einsum("bkgd,bpkd->bkgp", qf, k) * scale
+        s = torch.where(cols < lengths[:, None, None, None], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l_new = l * corr + p.sum(dim=-1)
+        acc_new = acc * corr[..., None] + torch.einsum("bkgp,bpkd->bkgd", p, v)
+        valid = (j * page_size < lengths)[:, None, None]
+        m = torch.where(valid, m_new, m)
+        l = torch.where(valid, l_new, l)
+        acc = torch.where(valid[..., None], acc_new, acc)
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(B, H, hd).to(q.dtype)

@@ -23,6 +23,7 @@ import torch
 
 from repro_torch import comm as comm_mod
 from repro_torch import optim
+from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.configs.base import get_config
 from repro_torch.core import localsgd as lsgd
 from repro_torch.data.synthetic import TokenPipeline
@@ -46,9 +47,8 @@ _NOT_PORTED = {
     "--inter-codec": "faults, push_sum, tiers and overlap",
     "--intra-drop-rate": "faults, push_sum, tiers and overlap",
     "--intra-stall-rate": "faults, push_sum, tiers and overlap",
-    "--checkpoint": "telemetry and checkpoints",
-    "--trace": "telemetry and checkpoints",
-    "--profile": "telemetry and checkpoints",
+    "--trace": "telemetry",
+    "--profile": "telemetry",
 }
 
 
@@ -127,6 +127,10 @@ def main(argv=None) -> None:
     ap.add_argument("--log-every", type=int, default=1)
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain versions")
+    ap.add_argument("--checkpoint", default="",
+                    help="save the averaged server params here (npz + json, "
+                         "no extension) for repro_torch.launch.serve "
+                         "--from-checkpoint")
     args, unknown = ap.parse_known_args(argv)
     for tok in unknown:
         flag = tok.split("=")[0]
@@ -188,6 +192,11 @@ def main(argv=None) -> None:
                   f"({seconds:.2f}s)")
     print(f"comm {args.comm}/{args.codec}: {wire_total:,} wire bytes over "
           f"{args.rounds} rounds")
+    if args.checkpoint:
+        ckpt_io.save(args.checkpoint, lsgd.server_params(state, layout),
+                     metadata={"arch": cfg.name, "rounds": args.rounds,
+                               "mode": args.mode})
+        print(f"checkpoint -> {args.checkpoint}.npz")
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
 """Model assembly for the dense family (counterpart of
 ``repro/models/api.py``: ``_build_decoder``, ``_embed_lookup``,
-``_chunked_ce`` and ``Model.loss``).
+``_chunked_ce``, ``Model.loss`` and ``Model.abstract``; ``_logits`` and
+``_greedy`` of ``repro/serve/decode.py`` for the serve programs).
 
     embed -> [rms_norm -> attention -> rms_norm -> mlp] x L -> norm -> lm_head
 
@@ -18,6 +19,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch import tree
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlpm
@@ -65,6 +67,21 @@ def _dense_block(p, x, cfg, schedule, block):
     return x + mlpm.mlp_forward(p["mlp"], h2, cfg)
 
 
+def _logits(params, x, cfg):
+    """Final norm and LM head on one position: x (B,1,D) -> (B,
+    padded_vocab) float32."""
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    out = torch.einsum("bsd,dv->bsv", x, head.to(x.dtype))
+    return out.to(torch.float32)[:, 0]
+
+
+def _greedy(logits, vocab: int):
+    """(B, padded_vocab) -> (B,) int32 greedy tokens over the real vocab
+    (the pad entries excluded); the first index wins a tie."""
+    return torch.argmax(logits[:, :vocab], dim=-1).to(torch.int32)
+
+
 def _layer_params(blocks, n_layers):
     """The stacked ``blocks`` tree -> one tree per layer (views)."""
     out = [{} for _ in range(n_layers)]
@@ -84,6 +101,12 @@ class Model:
 
     def init(self, generator: torch.Generator, device="cpu"):
         return init_params(self.defs, generator, device)
+
+    def abstract(self):
+        """The params' shapes and dtypes as a tree of ``meta`` tensors (no
+        storage): the structure a checkpoint is restored into."""
+        return tree.tree_map(lambda d: torch.empty(
+            d.shape, dtype=getattr(torch, d.dtype), device="meta"), self.defs)
 
     def loss(self, params, batch):
         """Mean next-token CE; the last position has no label and is

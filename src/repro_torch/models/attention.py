@@ -1,15 +1,17 @@
-"""GQA self attention for training (counterpart of
-``repro/models/attention.py``): the unblocked path and the blocked causal
-online-softmax path (``rect`` and ``tri`` schedules), in plain PyTorch.
-
-The reference's ``attn_impl="pallas"`` branch reaches its Pallas
-``flash_attention`` kernel; that kernel is not ported yet (ROADMAP.md
-Queue B, ``flash_attention``), so the branch raises here.
+"""GQA self attention for training, prefill and decode (counterpart of
+``repro/models/attention.py``): the unblocked path, the blocked causal
+online-softmax path (``rect`` and ``tri`` schedules) in plain PyTorch, and
+the ``attn_impl="pallas"`` branch, which runs the port's
+``flash_attention`` kernel (``kernels/flash_attention.py``; forward only,
+as in the reference). The serve decode step projects one token per slot
+(``project_qkv`` with (B, 1) positions) and attends over the paged pool
+through ``kernels/decode_attention.py``.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.models.layers import apply_rope, pdef, rms_norm
 
 NEG_INF = -1e30
@@ -35,7 +37,8 @@ def attention_defs(cfg):
 
 
 def project_qkv(p, x, cfg, positions):
-    """Self-attention projections with rotary embedding at ``positions``.
+    """Self-attention projections with rotary embedding at ``positions``
+    ((1, S) for a sequence, (B, 1) for one decode token per slot).
     Returns q (B,S,H,hd), k/v (B,S,KV,hd)."""
     dt = x.dtype
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
@@ -129,21 +132,35 @@ def blocked_causal_attention(q, k, v, block: int, schedule: str = "tri"):
     return out.transpose(0, 1).reshape(B, S, H, hd).to(q.dtype)
 
 
-def attention_forward(p, x, cfg, *, schedule="tri", block=512):
-    """x (B,S,D) -> (B,S,D) causal self attention. The blocked path runs
-    when the sequence holds at least two whole blocks; otherwise the
+def pallas_causal_attention(q, k, v, block: int, impl="auto"):
+    """The ``attn_impl="pallas"`` branch: q (B,S,H,hd), k/v (B,S,KV,hd)
+    through the flash kernel at the reference's block ``min(block, 128)``.
+    The kernel reads KV head h // g, so the reference's repeat of the KV
+    heads is not needed."""
+    bq = min(block, 128)
+    out = fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2), block_q=bq, block_k=bq,
+                             impl=impl)
+    return out.transpose(1, 2)
+
+
+def attention_forward(p, x, cfg, *, schedule="tri", block=512,
+                      return_kv=False, impl="auto"):
+    """x (B,S,D) -> (B,S,D) causal self attention, and with ``return_kv``
+    also the (k, v) it attended over (the serve prefill pages them).
+    The blocked path runs when the sequence holds at least two whole
+    blocks, through the flash kernel under ``attn_impl="pallas"``
+    (``impl`` picks the kernel or its plain version); otherwise the
     unblocked one (the reference's branch condition)."""
     S = x.shape[1]
     q, k, v = project_qkv(p, x, cfg, torch.arange(S, device=x.device)[None])
     blocked = S % block == 0 and S // block >= 2
     if blocked and cfg.attn_impl == "pallas" and S % min(block, 128) == 0:
-        raise NotImplementedError(
-            "attn_impl='pallas' runs the flash_attention kernel, which is "
-            "not ported yet (ROADMAP.md Queue B, flash_attention); use "
-            "attn_impl='blocked'")
-    if blocked:
+        out = pallas_causal_attention(q, k, v, block, impl)
+    elif blocked:
         out = blocked_causal_attention(q, k, v, block, schedule)
     else:
         out = full_attention(q, k, v, torch.tril(torch.ones(
             (S, S), dtype=torch.bool, device=x.device)))
-    return output_proj(p, out)
+    y = output_proj(p, out)
+    return (y, (k, v)) if return_kv else y

@@ -64,12 +64,23 @@ def test_loss_and_flat_grad_match_reference(name, seq, schedule, changes):
 
 
 def test_unported_paths_raise():
+    """attn_impl="pallas" runs its forward through the flash kernel's
+    plain version (the same loss as the blocked path, rtol 1e-5); a
+    gradient through it raises, since the kernel has no backward in
+    either package."""
     cfg = dataclasses.replace(get_config("paper-mlp").reduced(), **TINY,
                               attn_impl="pallas")
     model = build_model(cfg)
     params = model.init(torch.Generator().manual_seed(0))
+    batch = {"tokens": torch.randint(0, 256, (1, 1024),
+                                     generator=torch.Generator().manual_seed(1))}
+    blocked = build_model(dataclasses.replace(cfg, attn_impl="blocked"))
+    np.testing.assert_allclose(model.loss(params, batch).item(),
+                               blocked.loss(params, batch).item(), rtol=1e-5)
+    layout = packing.layout_of(params)
     with pytest.raises(NotImplementedError, match="flash_attention"):
-        model.loss(params, {"tokens": torch.zeros(1, 1024, dtype=torch.long)})
+        packing.value_and_flat_grad(model.loss, layout)(
+            packing.pack(params, layout), batch)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_config("qwen3-32b")
     with pytest.raises(NotImplementedError, match="family"):

@@ -67,3 +67,52 @@ def test_cli_runs_lossy_exchanges_on_cpu():
     out = _run(["--device", "cpu", "--comm", "ring", "--downlink-codec",
                 "int8"])
     assert out.returncode != 0 and "no separate downlink" in out.stderr
+
+
+def test_checkpoint_hands_off_to_the_serve_launcher(tmp_path):
+    """--checkpoint saves the averaged server params with the reference's
+    metadata; the serve launcher restores them on the CPU and passes its
+    parity check (each request replayed alone gives the same tokens)."""
+    import json
+
+    import numpy as np
+
+    path = str(tmp_path / "ck")
+    out = _run(["--device", "cpu", "--checkpoint", path])
+    assert out.returncode == 0, out.stderr
+    assert f"checkpoint -> {path}.npz" in out.stdout
+    with open(path + ".json") as f:
+        assert json.load(f) == {"arch": "paper-mlp-reduced", "rounds": 2,
+                                "mode": "localsgd"}
+    with np.load(path + ".npz") as data:
+        keys = list(data.keys())
+    assert keys == sorted(keys) and "blocks/attn/wq" in keys
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    serve = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+         "--arch", "paper-mlp", "--reduced", "--from-checkpoint", path,
+         "--requests", "4", "--check-parity"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert serve.returncode == 0, serve.stderr
+    assert f"params <- {path}.npz" in serve.stdout
+    assert "4 requests" in serve.stdout
+    assert "parity OK: 4 requests identical" in serve.stdout
+
+
+def test_serve_cli_defaults_to_cuda_and_refuses_unported_archs():
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+
+    def serve(args):
+        return subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+             "paper-mlp", "--reduced", "--requests", "2"] + args,
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+
+    out = serve([])
+    if torch.cuda.is_available():
+        assert out.returncode == 0, out.stderr
+    else:
+        assert out.returncode != 0 and "CUDA" in out.stderr
+        assert "requests" not in out.stdout
+    out = serve(["--device", "cpu", "--arch", "qwen3-32b"])
+    assert out.returncode != 0 and "not ported yet" in out.stderr
