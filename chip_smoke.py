@@ -87,10 +87,39 @@ Phases, in order; any failure raises and the script exits non-zero:
    with the kernels, the kernel run fed the plain run's tokens: the
    logits must agree at rtol 1e-4 / atol 1e-5 and the greedy tokens
    must be equal, except where the plain run's top-2 logit gap lies
-   within that tolerance (printed).
+   within that tolerance (printed). Phases 5-9 must have launched none
+   of the last four kernels below: neither package's training or serving
+   path reaches them;
+10. the kernel entry point ``repro_torch.kernels.ops`` and the last four
+   kernels. First ``rmsnorm`` (float32 and bfloat16), the quantize pair
+   and ``mamba_chunk`` against their plain versions on the card:
+   ``rmsnorm`` at zamba2-7b's d_model and d_inner over 4096 tokens
+   ((4096, 3584), (4096, 7168)), qwen3-32b's qk-norm (262,144, 128) and
+   the reference test's ragged shapes; the quantize pair at (1,947,852,
+   256) and at chunks 256, 128 and 37 over row counts that are no
+   multiple of 8, with all-zero rows; ``mamba_chunk`` at zamba2-7b's
+   full width (B 1, c 32, L 128, H 112, N 64, P 64; float32 and bfloat16
+   xh), the reference test's shapes, L 96, and a = -50 with dt =
+   softplus(3), where the decay above the diagonal overflows. Tolerances:
+   ``rmsnorm`` float32 rtol/atol 1e-6 (another summation order), bfloat16
+   one bfloat16 step; the quantize pair bit-equal, and composed
+   bit-equal to ``qdq_int8``'s kernel and plain version; ``mamba_chunk``
+   the reference test's 1e-4 (y, states) and 1e-5 (decay, cum), no NaN
+   anywhere. Each is timed at full width (CUDA events, median of 20)
+   beside its bound, its plain version and, for ``rmsnorm`` and
+   dequantize, one PyTorch call (``F.rms_norm``, ``torch.mul(q,
+   scales)``; yardsticks the port never calls). Then this slice's path:
+   with every count set to 0, each of the eleven ``ops`` functions is
+   called once on the card (the last four at the full-width shapes, the
+   others at small ones) against its plain version on the CPU, and every
+   kernel must have been launched once (``sq_norm_groups`` twice:
+   ``sq_norm`` is its one-row case; the exchange kernels, which ``ops``
+   does not front, not at all).
 
-The line before the last is one JSON object with each kernel's numbers;
-the last line is ``{"ok": true, "device": {...}}``.
+The line before the last is one JSON object with each kernel's numbers
+(the launches of phases 5 and 8 for the first eight, of phase 10's
+``ops`` path for the last four); the last line is ``{"ok": true,
+"device": {...}}``.
 """
 from __future__ import annotations
 
@@ -134,6 +163,14 @@ SOURCES = {
         "src/repro/kernels/decode_attention.py:159"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:84"),
+    "quantize_int8": ("src/repro_torch/kernels/csrc/quantize.cu",
+                      "src/repro/kernels/quantize.py:38"),
+    "dequantize_int8": ("src/repro_torch/kernels/csrc/quantize.cu",
+                        "src/repro/kernels/quantize.py:64"),
+    "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                "src/repro/kernels/rmsnorm.py:34"),
+    "mamba_chunk": ("src/repro_torch/kernels/csrc/mamba_scan.cu",
+                    "src/repro/kernels/mamba_scan.py:61"),
 }
 # bytes moved (each input read once, each output written once) and
 # float32 operations, per element of the (G, N) buffer. codec_mix as the
@@ -1185,6 +1222,322 @@ def serve_reference_check(torch, ckpt, server):
     torch.cuda.empty_cache()
 
 
+# Phase 10: the kernel entry point and the last four kernels.
+# (rows, D): zamba2-7b's d_model and d_inner over one 4096-token sequence
+# (src/repro/configs/zamba2.py), and qwen3-32b's qk-norm (4096 tokens x 64
+# heads of 128)
+RMS_FULL = ((4096, 3584), (4096, 7168), (262_144, 128))
+RMS_EDGE = ((4, 64), (2, 8, 128), (1, 31, 33), (300, 256), (1, 1, 1, 16))
+RMS_F32 = dict(rtol=1e-6, atol=1e-6)            # sum order, rsqrt
+# B, c, L, H, N, P: zamba2-7b's SSD at full width (d_inner 7168 / P 64,
+# ssm_state 64, chunk 128) over a 4096-token sequence; the reference
+# test's shapes and an L that is no power of two
+MAMBA_FULL = (1, 32, 128, 112, 64, 64)
+MAMBA_EDGE = ((1, 1, 8, 2, 4, 4), (2, 3, 16, 2, 8, 8), (1, 2, 128, 4, 64, 64),
+              (1, 2, 96, 3, 16, 8))
+MAMBA_YS = dict(rtol=1e-4, atol=1e-4)           # the reference test's
+MAMBA_CUM = dict(rtol=1e-5, atol=1e-5)
+LAST_FOUR = ("quantize_int8", "dequantize_int8", "rmsnorm", "mamba_chunk")
+
+
+def _rms_bound(rows, d, itemsize):
+    """Bytes: x in, y out, w once; operations: square, add, two products
+    per element."""
+    return bound_of(2 * rows * d * itemsize + 4 * d, 4 * rows * d)
+
+
+def _quant_bounds(rows, chunk):
+    """quantize: x and u in, q and the scales out; abs, max, division,
+    add, floor, two clips per element. dequantize: q and the scales in,
+    the float32 out; one product per element."""
+    n = rows * chunk
+    return (bound_of(9 * n + 4 * rows, 7 * n),
+            bound_of(5 * n + 4 * rows, n))
+
+
+def _mamba_bound(B, c, L, H, N, P):
+    """Bytes: xh and y, bmat and cmat, dt and cum, a, the states and the
+    decay, each once; operations (2 per multiply-add): the causal half of
+    C B^T once per chunk, the causal half of (C B^T * W) x and the state
+    product per (chunk, head)."""
+    bc, tri = B * c, L * (L + 1) // 2
+    nbytes = 4 * (2 * bc * L * H * P + 2 * bc * L * N + 2 * bc * L * H + H
+                  + bc * H * N * P + bc * H)
+    ops = bc * 2 * N * tri + bc * H * (2 * P * tri + 2 * N * P * L)
+    return bound_of(nbytes, ops)
+
+
+def _mamba_inputs(torch, gen, shape, xdtype=None, a=None, dt=None):
+    B, c, L, H, N, P = shape
+    dev = torch.device("cuda")
+    xh = torch.randn((B, c, L, H, P), generator=gen, device=dev)
+    bm = torch.randn((B, c, L, N), generator=gen, device=dev)
+    cm = torch.randn((B, c, L, N), generator=gen, device=dev)
+    dtv = (torch.nn.functional.softplus(torch.randn(
+        (B, c, L, H), generator=gen, device=dev)) if dt is None else
+        torch.full((B, c, L, H), dt, device=dev))
+    av = (-torch.randn((H,), generator=gen, device=dev).abs() - 0.1
+          if a is None else torch.full((H,), a, device=dev))
+    return (xh if xdtype is None else xh.to(xdtype)), bm, cm, dtv, av
+
+
+def _mamba_compare(torch, tag, got, want, ys=MAMBA_YS):
+    for name, g in zip(("y", "states", "decay", "cum"), got):
+        if not bool(torch.isfinite(g).all()):
+            fail(f"mamba_chunk {tag}: {name} holds a NaN or inf")
+    errs = [compare(f"mamba_chunk {tag} y", got[0].float(), want[0].float(),
+                    **ys),
+            compare(f"mamba_chunk {tag} states", got[1], want[1], **MAMBA_YS),
+            compare(f"mamba_chunk {tag} decay", got[2], want[2], **MAMBA_CUM),
+            compare(f"mamba_chunk {tag} cum", got[3], want[3], **MAMBA_CUM)]
+    return max(errs)
+
+
+def check_last_four(torch, results):
+    """Phase 10, first half: rmsnorm, the quantize pair and mamba_chunk
+    against their plain versions on the card, at full width, ragged and
+    edge shapes, and their times at full width."""
+    from repro_torch.kernels import exchange_epilogue as ee
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import quantize as qz
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rn
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    dev = torch.device("cuda")
+
+    def note(name, err):
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+
+    # rmsnorm: float32 within RMS_F32, bfloat16 within one bfloat16 step
+    cases = [(s, torch.float32) for s in RMS_FULL + RMS_EDGE] + [
+        (s, torch.bfloat16) for s in RMS_FULL[:1] + RMS_EDGE]
+    for shape, dt in cases:
+        x = torch.randn(shape, generator=gen, device=dev).to(dt)
+        w = torch.randn(shape[-1:], generator=gen, device=dev) + 1.0
+        got = rn.rmsnorm(x, w, impl="cuda")
+        want = rn.rmsnorm(x, w, impl="torch")
+        if got.dtype != dt or got.shape != x.shape:
+            fail(f"rmsnorm {shape} {dt}: got {got.dtype} {tuple(got.shape)}")
+        tol = RMS_F32 if dt == torch.float32 else BF16_STEP
+        note("rmsnorm", compare(f"rmsnorm {shape} {dt}", got.float(),
+                                want.float(), **tol))
+        del x, w, got, want
+    log(f"rmsnorm agrees with its plain version at {RMS_FULL} and "
+        f"{RMS_EDGE}, float32 (rtol 1e-6, atol 1e-6) and bfloat16 (one "
+        "bfloat16 step)")
+    for (rows, d), dt in [(s, torch.float32) for s in RMS_FULL] + [
+            (RMS_FULL[0], torch.bfloat16)]:
+        x = torch.randn((rows, d), generator=gen, device=dev).to(dt)
+        w = torch.randn((d,), generator=gen, device=dev) + 1.0
+        ms_ = time_ms(lambda: rn.rmsnorm(x, w, impl="cuda"), torch)
+        plain = time_ms(lambda: rn.rmsnorm(x, w, impl="torch"), torch)
+        lib = time_ms(lambda: torch.nn.functional.rms_norm(
+            x, (d,), w.to(dt), 1e-5), torch)
+        bms, by = _rms_bound(rows, d, x.element_size())
+        log(f"rmsnorm ({rows}, {d}) {dt} kernel_ms {ms_:.4f} bound_ms "
+            f"{bms:.4f} ({by}) plain_ms {plain:.4f} library_ms {lib:.4f} "
+            "(F.rms_norm)")
+        if (rows, d) == RMS_FULL[0] and dt == torch.float32:
+            results["rmsnorm"].update(ms=ms_, plain_ms=plain, library_ms=lib,
+                                      bound_ms=bms, bound_by=by)
+        del x, w
+    torch.cuda.empty_cache()
+
+    # the quantize pair: bit-equal to the plain versions, and composed,
+    # to qdq_int8's kernel and plain version (chunk 256)
+    for rows_n, chunk in ((QDQ_ROWS[0], 256), (3907, 256), (7, 256),
+                          (3907, 128), (1, 128), (3907, 37), (9, 37)):
+        x = torch.randn((rows_n, chunk), generator=gen, device=dev)
+        x[rows_n // 2] = 0.0
+        x[: max(1, rows_n // 3), : chunk // 2] *= 1e-6
+        u = torch.rand((rows_n, chunk), generator=gen, device=dev)
+        tag = f"({rows_n}, {chunk})"
+        q, s = qz.quantize_int8(x, u, impl="cuda")
+        wq, ws = qz.quantize_int8(x, u, impl="torch")
+        if not (torch.equal(q, wq) and torch.equal(s, ws)):
+            fail(f"quantize_int8 {tag}: q or scales differ from the plain "
+                 f"version ({int((q != wq).sum())} q, "
+                 f"{int((s != ws).sum())} scales)")
+        if float(s[rows_n // 2]) != 1.0 or bool(q[rows_n // 2].any()):
+            fail(f"quantize_int8 {tag}: an all-zero row did not give "
+                 "scale 1 and q 0")
+        back = qz.dequantize_int8(q, s, impl="cuda")
+        if not torch.equal(back, qz.dequantize_int8(q, s, impl="torch")):
+            fail(f"dequantize_int8 {tag}: differs from the plain version")
+        if not torch.equal(back, ref.qdq_int8_ref(x, u)):
+            fail(f"quantize+dequantize {tag}: differs from qdq_int8_ref")
+        if chunk == 256 and not torch.equal(
+                back, ee.qdq_int8(x, u, impl="cuda")):
+            fail(f"quantize+dequantize {tag}: differs from the qdq_int8 "
+                 "kernel")
+        del wq, ws, back
+        if (rows_n, chunk) == QDQ_ROWS:
+            (qb, qby), (db, dby) = _quant_bounds(rows_n, chunk)
+            r = results["quantize_int8"]
+            r.update(ms=time_ms(lambda: qz.quantize_int8(x, u, impl="cuda"),
+                                torch),
+                     plain_ms=time_ms(lambda: qz.quantize_int8(
+                         x, u, impl="torch"), torch),
+                     library_ms=None, bound_ms=qb, bound_by=qby)
+            d = results["dequantize_int8"]
+            d.update(ms=time_ms(lambda: qz.dequantize_int8(q, s, impl="cuda"),
+                                torch),
+                     plain_ms=time_ms(lambda: qz.dequantize_int8(
+                         q, s, impl="torch"), torch),
+                     library_ms=time_ms(lambda: torch.mul(q, s), torch),
+                     bound_ms=db, bound_by=dby)
+            log(f"quantize_int8 {QDQ_ROWS} kernel_ms {r['ms']:.4f} bound_ms "
+                f"{qb:.4f} ({qby}) plain_ms {r['plain_ms']:.4f} library_ms "
+                "none (no single PyTorch call)")
+            log(f"dequantize_int8 {QDQ_ROWS} kernel_ms {d['ms']:.4f} "
+                f"bound_ms {db:.4f} ({dby}) plain_ms {d['plain_ms']:.4f} "
+                f"library_ms {d['library_ms']:.4f} (torch.mul(q, scales))")
+        del x, u, q, s
+        torch.cuda.empty_cache()
+    log("quantize_int8 and dequantize_int8 equal their plain versions bit "
+        "for bit (chunks 256, 128, 37; all-zero rows), and the pair equals "
+        "qdq_int8's kernel and plain version")
+
+    # mamba_chunk: full width, the reference test's shapes, L 96, a large
+    # |a| (exp above the diagonal overflows), bfloat16 xh
+    cases = ([(MAMBA_FULL, {}), (MAMBA_FULL, dict(xdtype=torch.bfloat16))]
+             + [(s, {}) for s in MAMBA_EDGE]
+             + [(MAMBA_EDGE[2], dict(a=-50.0, dt=3.0485873222351074)),
+                (MAMBA_EDGE[3], dict(xdtype=torch.bfloat16))])
+    for shape, kw in cases:
+        args = _mamba_inputs(torch, gen, shape, **kw)
+        tag = f"{shape} {kw or 'float32'}"
+        got = ms.mamba_chunk(*args, impl="cuda")
+        want = ms.mamba_chunk(*args, impl="torch")
+        ys = MAMBA_YS if "xdtype" not in kw else dict(rtol=2.0 ** -7,
+                                                      atol=1e-4)
+        note("mamba_chunk", _mamba_compare(torch, tag, got, want, ys))
+        log(f"mamba_chunk agrees with its plain version at {tag}")
+        if shape == MAMBA_FULL and not kw:
+            r = results["mamba_chunk"]
+            r["ms"] = time_ms(lambda: ms.mamba_chunk(*args, impl="cuda"),
+                              torch)
+            r["plain_ms"] = time_ms(lambda: ms.mamba_chunk(
+                *args, impl="torch"), torch)
+            r["library_ms"] = None
+            r["bound_ms"], r["bound_by"] = _mamba_bound(*shape)
+            log(f"mamba_chunk {shape} f32 kernel_ms {r['ms']:.4f} bound_ms "
+                f"{r['bound_ms']:.4f} ({r['bound_by']}) plain_ms "
+                f"{r['plain_ms']:.4f} library_ms none (no single PyTorch "
+                f"call) max_abs_err {r['max_abs_err']:.3e}")
+        del args, got, want
+        torch.cuda.empty_cache()
+
+
+def ops_path(torch):
+    """Phase 10, second half: this slice's path, the public entry point
+    ``repro_torch.kernels.ops``. Every count is set to 0, each of its
+    eleven functions is called once on the card (the last four kernels at
+    full width, the others at small shapes) and held against its plain
+    version on the CPU, and the counts are read. Returns them."""
+    import numpy as np
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import exchange_epilogue as ee
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import (fused_adamw, fused_momentum, fused_sgd,
+                                     mamba_scan, ops, quantize, rmsnorm,
+                                     sq_norm)
+
+    gen = torch.Generator().manual_seed(4)
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen) * scale
+
+    def both(name, fn, *args, tol=None, **kw):
+        """fn on the card and on the CPU, the CPU's plain version as the
+        reference; tol None: bit-equal."""
+        got = fn(*(a.cuda() if isinstance(a, torch.Tensor) else a
+                   for a in args), **kw)
+        want = fn(*(a.clone() if isinstance(a, torch.Tensor) else a
+                    for a in args), **kw)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err = 0.0
+        for k, (g, w) in enumerate(zip(got, want)):
+            g, w = g.cpu(), w
+            t = tol[k] if isinstance(tol, list) else tol
+            if t is None:
+                if not torch.equal(g, w):
+                    fail(f"ops.{name} output {k}: the card differs from the "
+                         "CPU's plain version")
+            else:
+                err = max(err, compare(f"ops.{name} output {k} (card vs CPU)",
+                                       g.float(), w.float(), **t))
+        log(f"ops.{name}: the card agrees with the CPU's plain version "
+            f"(max abs err {err:.3e})")
+
+    mods = {"fused_sgd": fused_sgd, "fused_momentum": fused_momentum,
+            "fused_adamw": fused_adamw, "sq_norm_groups": sq_norm,
+            "paged_decode_attention": da, "flash_attention": fa,
+            "rmsnorm": rmsnorm, "mamba_chunk": mamba_scan}
+
+    def counts():
+        c = {name: mod.launches for name, mod in mods.items()}
+        c.update(ee.launches)
+        c.update(quantize.launches)
+        return c
+
+    # the eight earlier kernels at small shapes
+    q, k, v = rand(1, 2, 128, 32), rand(1, 2, 128, 32), rand(1, 2, 128, 32)
+    nblk, n_pages = 5, 31
+    pool = rand(n_pages, 256)
+    rows = torch.randperm(n_pages - 1, generator=gen).to(torch.int32) + 1
+    dq = rand(3, 4, 8)
+    p, g, m = rand(1003), rand(1003), rand(1003, scale=0.1)
+    vv = rand(1003, scale=0.01).abs()
+    x2 = rand(3, 1003)
+    # the last four at full width
+    rx, rw = rand(*RMS_FULL[0]), rand(RMS_FULL[0][1]) + 1.0
+    qx = rand(*QDQ_ROWS)
+    qu = torch.rand(QDQ_ROWS, generator=gen)
+    qq = torch.randint(-127, 128, QDQ_ROWS, generator=gen).to(torch.int8)
+    qs = rand(QDQ_ROWS[0], 1).abs()
+    B, c, L, H, N, P = MAMBA_FULL
+    mam = (rand(B, c, L, H, P), rand(B, c, L, N), rand(B, c, L, N),
+           torch.nn.functional.softplus(rand(B, c, L, H)),
+           -rand(H).abs() - 0.1)
+    ew = dict(rtol=1e-6, atol=1e-7)
+
+    for mod in mods.values():
+        mod.launches = 0
+    for d in (ee.launches, quantize.launches):
+        for key in d:
+            d[key] = 0
+    both("flash_attention", ops.flash_attention, q, k, v, 64, 64,
+         tol=ATTN_TOL)
+    both("paged_decode_attention", ops.paged_decode_attention, dq, pool,
+         rows[:3 * nblk].reshape(3, nblk), rows[15:15 + 3 * nblk].reshape(
+             3, nblk), torch.tensor([1, 7, 20], dtype=torch.int32), 4, 2,
+         tol=ATTN_TOL)
+    both("rmsnorm", ops.rmsnorm, rx, rw, tol=RMS_F32)
+    both("fused_adamw", ops.fused_adamw, p, g, m, vv, 7, 1e-3, 0.9, 0.999,
+         1e-8, 0.01, tol=ew)
+    both("fused_sgd", ops.fused_sgd, p, g, 0.1, tol=ew)
+    both("fused_momentum", ops.fused_momentum, p, g, m, 0.1, 0.9, tol=ew)
+    both("sq_norm", ops.sq_norm, p, tol=dict(rtol=NORM_RTOL, atol=0.0))
+    both("sq_norm_groups", ops.sq_norm_groups, x2,
+         tol=dict(rtol=NORM_RTOL, atol=0.0))
+    both("mamba_chunk", ops.mamba_chunk, *mam,
+         tol=[MAMBA_YS, MAMBA_YS, MAMBA_CUM, MAMBA_CUM])
+    both("quantize_int8", ops.quantize_int8, qx, qu)
+    both("dequantize_int8", ops.dequantize_int8, qq, qs)
+    got = counts()
+    want = dict.fromkeys(got, 1)
+    want.update(sq_norm_groups=2, codec_mix=0, qdq_int8=0)
+    log(f"ops path launches {got}")
+    if got != want:
+        fail(f"ops path launches {got}, expected {want}")
+    del rx, rw, qx, qu, qq, qs, mam
+    return {name: got[name] for name in LAST_FOUR}
+
+
 def _kernel_name(mangled):
     """A ptxas entry name, short: the kernel's name after its namespace
     and its raw template arguments (``paged_decode_kernel ILi64ELi1EE``:
@@ -1216,7 +1569,8 @@ def main() -> int:
     # the wrapper modules, reached below as attributes of K
     from repro_torch.kernels import (build, exchange_epilogue,  # noqa: F401
                                      fused_adamw, fused_momentum, fused_sgd,
-                                     ref, sq_norm)
+                                     mamba_scan, quantize, ref, rmsnorm,
+                                     sq_norm)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1246,6 +1600,9 @@ def main() -> int:
     results = check_kernels(torch, K, ref)
     check_exchange_kernels(torch, exchange_epilogue, results)
     reference_check(torch)
+    for c in K.quantize.launches:
+        K.quantize.launches[c] = 0
+    K.rmsnorm.launches = K.mamba_scan.launches = 0
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         ckpt = os.path.join(tmp, "paper-lenet")
         counts, server = main_path(torch, K, exchange_epilogue, ckpt)
@@ -1253,6 +1610,14 @@ def main() -> int:
         check_attention_kernels(torch, results)
         counts.update(serve_path(torch, ckpt, server, tmp))
         serve_reference_check(torch, ckpt, server)
+    # neither package's training or serving path reaches the last four
+    off_path = dict(K.quantize.launches, rmsnorm=K.rmsnorm.launches,
+                    mamba_chunk=K.mamba_scan.launches)
+    log(f"phases 5-9 launched the last four kernels {off_path} times")
+    if any(off_path.values()):
+        fail(f"the train and serve paths launched {off_path}")
+    check_last_four(torch, results)
+    counts.update(ops_path(torch))
 
     # again at the end, where a tail of the output still holds them
     log(built)

@@ -59,6 +59,19 @@ def check_rows(name: str, *tensors: torch.Tensor) -> tuple:
     return x.shape[0], x.shape[1]
 
 
+def check_buffer(name: str, t, shape, device, dtype=torch.float32) -> None:
+    """Validate one buffer of a kernel call: its dtype, shape and device,
+    and that it is contiguous."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
+    if t.device != device:
+        raise ValueError(f"{name}: tensors on {t.device} and {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: buffers must be contiguous")
+
+
 def check_active(name: str, active, rows: int, device) -> None:
     if active is None:
         return

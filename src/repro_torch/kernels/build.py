@@ -67,6 +67,22 @@ SIGNATURES = {
         # x, partials, out, rows, n, blocks, stream
         "repro_sq_norm_groups": (_P, _P, _P, _I64, _I64, _I64, _P),
     },
+    "rmsnorm": {
+        # x, w, out, rows, d, bf16, blocks, stream, eps
+        "repro_rmsnorm": (_P, _P, _P, _I64, _I64, _I64, _I64, _P, _F),
+    },
+    "quantize": {
+        # x, u, q, scales, rows, chunk, blocks, stream
+        "repro_quantize_int8": (_P, _P, _P, _P, _I64, _I64, _I64, _P),
+        # q, scales, out, rows, chunk, blocks, stream
+        "repro_dequantize_int8": (_P, _P, _P, _I64, _I64, _I64, _P),
+    },
+    "mamba_scan": {
+        # xh, bmat, cmat, dt, a, y, states, decay, cum, B*c, L, H, N, P,
+        # bf16, stream
+        "repro_mamba_chunk": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
+                              _I64, _I64, _I64, _I64, _P),
+    },
 }
 
 _lock = threading.Lock()

@@ -19,7 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.kernels import build, grid_blocks, resolve_impl, stream_of
+from repro_torch.kernels import (build, check_buffer, grid_blocks,
+                                 resolve_impl, stream_of)
 from repro_torch.kernels.ref import codec_mix_ref, qdq_int8_ref
 
 KINDS = ("int8", "bf16", "fp16", "thresh")
@@ -30,25 +31,14 @@ CHUNK = 256       # the int8 chunk the kernels take (one block width)
 launches = {"codec_mix": 0, "qdq_int8": 0}
 
 
-def _check(name, t, shape, device):
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: expected float32, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
-    if t.device != device:
-        raise ValueError(f"{name}: tensors on {t.device} and {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: buffers must be contiguous")
-
-
 def qdq_int8(rows, u, *, impl="auto"):
     """(rows, chunk) float32 + noise in [0, 1) of the same shape -> the
     decoded (rows, chunk) float32 (a new tensor)."""
     if rows.dim() != 2:
         raise ValueError(f"qdq_int8: expected (rows, chunk), got "
                          f"{tuple(rows.shape)}")
-    _check("qdq_int8", rows, rows.shape, rows.device)
-    _check("qdq_int8", u, rows.shape, rows.device)
+    check_buffer("qdq_int8", rows, rows.shape, rows.device)
+    check_buffer("qdq_int8", u, rows.shape, rows.device)
     if resolve_impl(impl, rows.device) == "torch":
         return qdq_int8_ref(rows, u)
     if rows.shape[1] != CHUNK:
@@ -88,18 +78,19 @@ def codec_mix(x, x0, *, kind, u=None, w=None, hops=1, chunk=0,
     dev = x.device
     for t in (x0, out, residual, residual_out):
         if t is not None:
-            _check("codec_mix", t, x.shape, dev)
-    _check("codec_mix", x, x.shape, dev)
+            check_buffer("codec_mix", t, x.shape, dev)
+    check_buffer("codec_mix", x, x.shape, dev)
     n_hops = hops if w is not None else 1
     if kind == "thresh":
         if w is not None or residual is None or tau is None:
             raise ValueError("codec_mix: thresh takes mean mixing only, "
                              "with a residual and a (G, 1) tau")
-        _check("codec_mix tau", tau, (g, 1), dev)
+        check_buffer("codec_mix tau", tau, (g, 1), dev)
     if kind == "int8":
         if u is None or chunk <= 0:
             raise ValueError("codec_mix: int8 needs the noise u and chunk")
-        _check("codec_mix u", u, (n_hops, g * -(-n // chunk), chunk), dev)
+        check_buffer("codec_mix u", u, (n_hops, g * -(-n // chunk), chunk),
+                     dev)
     if w is not None and (np.shape(w) != (g, g) or hops < 1):
         raise ValueError(f"codec_mix: w must be ({g}, {g}) and hops >= 1")
     if resolve_impl(impl, dev) == "torch":

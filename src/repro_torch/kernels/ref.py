@@ -188,3 +188,70 @@ def paged_decode_attention_ref(q, pool, rows_k, rows_v, lengths, *,
         acc = torch.where(valid[..., None], acc_new, acc)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(B, H, hd).to(q.dtype)
+
+
+# -- the last four (counterparts of repro/kernels/rmsnorm.py, quantize.py
+# and mamba_scan.py)
+
+
+def rmsnorm_ref(x, w, eps=1e-5):
+    """x (..., D), w (D,): x * rsqrt(mean(x^2) + eps) * w in float32 math,
+    returned in x's dtype."""
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps) * w.to(torch.float32)
+    return y.to(x.dtype)
+
+
+def quantize_int8_ref(x, u):
+    """(rows, chunk) float32 and noise u in [0, 1) -> (q int8 (rows, chunk),
+    scales float32 (rows, 1)): scale = amax/127 per row (1 for an all-zero
+    row), q = clip(floor(x/scale + u), -127, 127). The division is by a
+    device tensor, as in ``qdq_int8_ref``, so the pair composes to it bit
+    for bit."""
+    amax = x.abs().amax(dim=-1, keepdim=True)
+    scale = torch.where(amax > 0, amax / amax.new_tensor(127.0),
+                        torch.ones_like(amax))
+    q = torch.clamp(torch.floor(x / scale + u), -127.0, 127.0)
+    return q.to(torch.int8), scale
+
+
+def dequantize_int8_ref(q, scales):
+    """(rows, chunk) int8 and (rows, 1) float32 scales -> q * scale."""
+    return q.to(torch.float32) * scales
+
+
+def mamba_chunk_ref(xh, bmat, cmat, dt, a):
+    """Mamba2 SSD intra-chunk for every chunk, in the kernel's batched
+    layout: xh (B,c,L,H,P) float32 or bfloat16, bmat and cmat (B,c,L,N),
+    dt (B,c,L,H), a (H,) -> (y (B,c,L,H,P) in xh's dtype, states
+    (B,c,H,N,P), chunk decay (B,c,H), cum (B,c,L,H)), all float32 but y.
+
+    cum is the inclusive cumsum of dt*a taken in sequence over L; the
+    weight of key j for query i is exp(cum_i - cum_j)*dt_j where i >= j
+    and 0 elsewhere (selected, never multiplied by a mask: above the
+    diagonal the exp may overflow); y = (C B^T * W) x; the state is
+    (B * exp(cum_last - cum) dt)^T x; the decay exp(cum_last)."""
+    L = xh.shape[2]
+    f32 = torch.float32
+    xf = xh.to(f32)
+    dt = dt.to(f32)
+    da = dt * a.to(f32)
+    cum = torch.empty_like(da)
+    run = da[:, :, 0]
+    cum[:, :, 0] = run
+    for l in range(1, L):
+        run = run + da[:, :, l]
+        cum[:, :, l] = run
+    causal = torch.tril(torch.ones((L, L), dtype=torch.bool,
+                                   device=xh.device))[:, :, None]
+    w = torch.where(causal, torch.exp(cum[:, :, :, None, :]
+                                      - cum[:, :, None, :, :])
+                    * dt[:, :, None, :, :], 0.0)          # (B,c,i,j,H)
+    cb = torch.einsum("bcin,bcjn->bcij", cmat.to(f32), bmat.to(f32))
+    y = torch.einsum("bcijh,bcjhp->bcihp", cb[..., None] * w, xf)
+    last = cum[:, :, -1]                                  # (B,c,H)
+    w_state = torch.exp(last[:, :, None] - cum) * dt      # (B,c,L,H)
+    bw = bmat.to(f32)[..., None] * w_state[:, :, :, None, :]
+    states = torch.einsum("bclnh,bclhp->bchnp", bw, xf)
+    return y.to(xh.dtype), states, torch.exp(last), cum

@@ -5,7 +5,8 @@
 round. On a CUDA tensor it launches the deterministic two-pass
 ``repro_sq_norm_groups`` (``csrc/sq_norm.cu``) with a (G, blocks)
 scratch allocated here; on a CPU tensor it takes
-``ref.sq_norm_groups_ref``.
+``ref.sq_norm_groups_ref``. ``sq_norm`` is its one-row case, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -34,3 +35,12 @@ def sq_norm_groups(x, *, impl="auto"):
     launches += 1
     return out
 
+
+
+def sq_norm(x, *, impl="auto"):
+    """Sum of squares of a flat 1-D float32 buffer -> 0-d float32, through
+    ``sq_norm_groups`` on the one-row view ``x[None]``."""
+    if x.dim() != 1:
+        raise ValueError(f"sq_norm: expected a 1-D buffer, got "
+                         f"{tuple(x.shape)}")
+    return sq_norm_groups(x[None], impl=impl)[0]
