@@ -7,7 +7,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. the device: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. the build: every CUDA C++ kernel of ``src/repro_torch/kernels/csrc``
-   compiled with nvcc for sm_90a (one process per source, in parallel);
+   compiled with nvcc for sm_90a (one process per source, in parallel),
+   and the TF32 ``HMMA`` instructions in the flash library's SASS
+   counted (``cuobjdump -sass``);
 3. each kernel against its plain PyTorch version on the card, at the main
    path's shape (4, 124,662,528), a ragged (3, 1,000,003) and a few
    tiny ragged shapes, with a row switched off by the ``active`` mask; adamw at counts 1 and 1000 (and
@@ -51,8 +53,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    geometry (KV 8, g 8, hd 128, page 16, lengths up to 4096) and tiny
    ragged ones (GQA, MHA, MQA); ``flash_attention`` at paper-lenet's
    prefill (1, 12, 1024, 64) float32, (2, 12, 2048, 64), a bfloat16 case,
-   GQA at qwen3-32b's head_dim 128, and tiny shapes (unequal blocks, a
-   sequence that is no multiple of the kernel's 64-row tile).
+   GQA at qwen3-32b's head_dim 128, tiny shapes (unequal blocks, a
+   sequence that is no multiple of the kernel's 64-row tile), S 1000 and
+   1088 (no multiple of 128), qwen3-32b's head geometry at (1, 64, 8,
+   2048, 128) and head dims 8 and 16 at length; flash must give the same
+   bits on a rerun, and phase 2's count of TF32 HMMA instructions must
+   not be 0 (the tensor-core path is the one built).
    Tolerances: float32 rtol 1e-5 / atol 1e-6 (the sums run in another
    order, so bits may differ), flash against its plain version evaluated
    in float64 (the float32 plain version's own error, logged beside the
@@ -64,7 +70,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    20) at the serve path's shapes beside its bound, its plain version and,
    for flash, ``scaled_dot_product_attention(is_causal=True)`` (a
    yardstick the port never calls; no single PyTorch call computes paged
-   attention);
+   attention; the profiler names SDPA's device kernel once). Flash is
+   timed under both schedules (heaviest first, paired) at (1, 12, 1024,
+   64), (2, 12, 2048, 64) and (1, 64, 8, 2048, 128), beside its float32
+   bound and the bound of its design (3xTF32 on the tensor cores);
 8. the serve path at full width: phase 5's fp32 adamw server params, saved
    with ``checkpoint/io.save`` to a temporary directory and restored
    through ``serve.handoff.restore_params``, served as paper-lenet with
@@ -95,7 +104,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    and ``mamba_chunk`` against their plain versions on the card:
    ``rmsnorm`` at zamba2-7b's d_model and d_inner over 4096 tokens
    ((4096, 3584), (4096, 7168)), qwen3-32b's qk-norm (262,144, 128) and
-   the reference test's ragged shapes; the quantize pair at (1,947,852,
+   d_model (4096, 5120), a wide D of no register-tile multiple (4096,
+   3588), and the reference test's ragged shapes (bfloat16 at both of
+   zamba2-7b's widths and the ragged shapes); the quantize pair at (1,947,852,
    256) and at chunks 256, 128 and 37 over row counts that are no
    multiple of 8, with all-zero rows; ``mamba_chunk`` at zamba2-7b's
    full width (B 1, c 32, L 128, H 112, N 64, P 64; float32 and bfloat16
@@ -142,6 +153,8 @@ RAGGED = (3, 1_000_003)
 TINY = ((5, 1), (3, 2), (4, 3), (2, 7), (1, 4099))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12           # the same, float32 outside tensor cores
+TF32_OPS_PER_S = 495e12          # the same, TF32 on the tensor cores, dense
+SLEEP_CYCLES = 2_000_000         # ~1 ms of an H100's clock, ahead of a timed call
 EW_TOL = dict(rtol=1e-6, atol=1e-7)
 NORM_RTOL = 1e-5
 
@@ -205,12 +218,18 @@ def compare(name, got, want, rtol, atol):
 
 
 def time_ms(fn, torch, reps=20, warmup=3):
+    """Median ms of one call between CUDA events, the device's time alone:
+    the card is held busy (``torch.cuda._sleep``, ~1 ms) while the host
+    enqueues the start event and the call, so the host's time to issue a
+    short kernel is not counted (where issuing takes longer than the
+    sleep, as for a plain version of many small ops, part of it is)."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
         a.record()
         fn()
         b.record()
@@ -225,9 +244,9 @@ def bound(name, shape):
     return bound_of(nbytes * rows * n, ops * rows * n)
 
 
-def bound_of(nbytes, ops):
+def bound_of(nbytes, ops, ops_per_s=FP32_OPS_PER_S):
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    op_ms = ops / FP32_OPS_PER_S * 1e3
+    op_ms = ops / ops_per_s * 1e3
     return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
 
 
@@ -845,17 +864,83 @@ def _decode_bound(q, n_kv, lengths, nblk):
     return bound_of(nbytes, 4 * live * H * hd)
 
 
-def _flash_bound(B, H, KV, S, hd, itemsize=4):
+def _flash_bound(B, H, KV, S, hd, itemsize=4, tensor_cores=False):
     """Bytes: q, out (B, H, S, hd) and k, v (B, KV, S, hd) once;
     operations: the causal half of QK^T and P@V, 2 flops per
-    multiply-add."""
+    multiply-add, at the float32 rate outside the tensor cores, or, for
+    the kernel's design (``tensor_cores``), three TF32 products each (the
+    3xTF32 split) at the TF32 tensor-core rate."""
     nbytes = (2 * B * H + 2 * B * KV) * S * hd * itemsize
-    return bound_of(nbytes, 4 * hd * S * (S + 1) // 2 * B * H)
+    ops = 4 * hd * S * (S + 1) // 2 * B * H
+    if tensor_cores:
+        return bound_of(nbytes, 3 * ops, TF32_OPS_PER_S)
+    return bound_of(nbytes, ops)
 
 
-def check_attention_kernels(torch, results):
+def _flash_times(torch, fa, shape, gen):
+    """Kernel ms under both schedules (heaviest first, paired), the
+    public entry point's schedule, SDPA's ms (the KV heads repeated for
+    it), and both bounds, at (B, H, KV, S, hd) float32."""
+    B, H, KV, S, hd = shape
+    q = torch.randn((B, H, S, hd), generator=gen, device="cuda")
+    k, v = (torch.randn((B, KV, S, hd), generator=gen, device="cuda")
+            for _ in range(2))
+    kr, vr = (k, v) if KV == H else (k.repeat_interleave(H // KV, 1),
+                                     v.repeat_interleave(H // KV, 1))
+    t = {name: time_ms(lambda: fa.launch(q, k, v, paired), torch)
+         for name, paired in (("heaviest_first", False), ("paired", True))}
+    t["ms"] = time_ms(lambda: fa.flash_attention(q, k, v, impl="cuda"), torch)
+    t["library_ms"] = time_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, kr, vr, is_causal=True), torch)
+    t["bound"] = _flash_bound(*shape)
+    t["tc_bound"] = _flash_bound(*shape, tensor_cores=True)
+    log(f"flash_attention {shape} f32 kernel_ms {t['ms']:.4f} (schedule "
+        f"{'paired' if fa.PAIRED else 'heaviest first'}; heaviest first "
+        f"{t['heaviest_first']:.4f}, paired {t['paired']:.4f}) bound_ms "
+        f"{t['tc_bound'][0]:.4f} ({t['tc_bound'][1]}: 3xTF32 at "
+        f"{TF32_OPS_PER_S / 1e12:.0f} TFLOP/s) f32-SIMT bound_ms "
+        f"{t['bound'][0]:.4f} ({t['bound'][1]}: {FP32_OPS_PER_S / 1e12:.0f} "
+        f"TFLOP/s) library_ms {t['library_ms']:.4f} (sdpa causal)")
+    return q, k, v, t
+
+
+def _sdpa_kernel_name(torch, q, k, v):
+    """SDPA's backend for these inputs (``torch._fused_sdp_choice``) and
+    its device kernels over ten calls, by the profiler."""
+    from torch.nn.attention import SDPBackend
+    from torch.profiler import ProfilerActivity, profile
+    f = torch.nn.functional.scaled_dot_product_attention
+    names = {b.value: n for n, b in SDPBackend.__members__.items()}
+    backend = names.get(int(torch._fused_sdp_choice(q, k, v, None, 0.0, True)))
+    f(q, k, v, is_causal=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            f(q, k, v, is_causal=True)
+        torch.cuda.synchronize()
+    kernels = sorted({e.key for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA})
+    return backend, kernels or ["(the profiler captured no device kernel)"]
+
+
+def sass_tf32_mma(build):
+    """The TF32 HMMA instructions in the flash library's SASS."""
+    import shutil
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(build.nvcc()), "cuobjdump")
+    sass = subprocess.run(
+        [tool, "-sass", str(build.library_path("flash_attention"))],
+        capture_output=True, text=True, timeout=300, check=True).stdout
+    return sum(1 for line in sass.splitlines()
+               if "HMMA" in line and "TF32" in line)
+
+
+def check_attention_kernels(torch, results, tf32_mma):
     """Phase 7: the serve path's kernels against their plain versions,
-    and their times at the path's shapes."""
+    and their times at the path's shapes. ``tf32_mma``: phase 2's count
+    of TF32 HMMA instructions in the flash library, which must not be 0."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
@@ -905,7 +990,20 @@ def check_attention_kernels(torch, results):
         (2, 1, 1, 64, 16, torch.float32, 64, 64),
         (1, 3, 3, 40, 32, torch.float32, 128, 128),
         (1, 2, 1, 16, 8, torch.float32, 16, 16),
+        # sequences that are no multiple of 128 (1000 of no 64 either),
+        # qwen3-32b's head geometry, and head dims 8 and 16 at length
+        (1, 4, 2, 1000, 64, torch.float32, 1000, 1000),
+        (1, 4, 4, 1088, 64, torch.float32, 64, 64),
+        (1, 4, 4, 1000, 64, torch.bfloat16, 1000, 1000),
+        (1, 64, 8, 2048, 128, torch.float32, 128, 128),
+        (1, 4, 2, 520, 8, torch.float32, 520, 520),
+        (2, 4, 4, 384, 16, torch.float32, 128, 128),
+        (1, 4, 4, 384, 16, torch.bfloat16, 128, 128),
     ]
+    if tf32_mma == 0:
+        fail("flash_attention: no TF32 HMMA instruction in the library's "
+             "SASS; the tensor-core path is not the one built")
+    log(f"flash_attention library: {tf32_mma} TF32 HMMA instructions")
     for B, nh, kv, S, d, dt, bq, bk in flash_cases:
         q = torch.randn((B, nh, S, d), generator=gen, device="cuda").to(dt)
         k = torch.randn((B, kv, S, d), generator=gen, device="cuda").to(dt)
@@ -933,6 +1031,12 @@ def check_attention_kernels(torch, results):
             log(f"{tag}: max abs err {e1:.3e} against the plain version, "
                 f"{e2:.3e} against the float32 plain version")
         log(f"flash_attention agrees with its plain version at {tag}")
+        if (B, nh, S, d) in ((1, 12, 1024, 64), (1, 64, 2048, 128)):
+            again = fa.flash_attention(q, k, v, impl="cuda", **kw)
+            if not torch.equal(got, again):
+                fail(f"{tag}: two runs differ")
+            log(f"{tag}: a rerun gives the same bits")
+            del again
         del q, k, v, got, want
 
     # times at the serve path's shapes: the decode step over 8 slots with
@@ -953,34 +1057,21 @@ def check_attention_kernels(torch, results):
         f"plain_ms {r['plain_ms']:.4f} library_ms none (no single PyTorch "
         f"call) max_abs_err {r['max_abs_err']:.3e}")
     del q, pool
-    B, S = 1, 1024
-    q, k, v = (torch.randn((B, H, S, hd), generator=gen, device="cuda")
-               for _ in range(3))
+    q, k, v, t = _flash_times(torch, fa, (1, H, H, 1024, hd), gen)
     r = results["flash_attention"]
-    r["ms"] = time_ms(lambda: fa.flash_attention(q, k, v, impl="cuda"), torch)
     r["plain_ms"] = time_ms(lambda: fa.flash_attention(q, k, v, impl="torch"),
                             torch)
-    r["library_ms"] = time_ms(
-        lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, is_causal=True), torch)
-    r["bound_ms"], r["bound_by"] = _flash_bound(B, H, H, S, hd)
-    log(f"flash_attention {(B, H, S, hd)} f32 kernel_ms {r['ms']:.4f} "
-        f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}) plain_ms "
-        f"{r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} (sdpa causal) "
-        f"max_abs_err {r['max_abs_err']:.3e}")
-    for shape in ((2, 12, 2048, 64),):
-        q2, k2, v2 = (torch.randn(shape, generator=gen, device="cuda")
-                      for _ in range(3))
-        ms = time_ms(lambda: fa.flash_attention(q2, k2, v2, impl="cuda"),
-                     torch)
-        lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            q2, k2, v2, is_causal=True), torch)
-        bms, by = _flash_bound(shape[0], shape[1], shape[1], shape[2],
-                               shape[3])
-        log(f"flash_attention {shape} f32 kernel_ms {ms:.4f} bound_ms "
-            f"{bms:.4f} ({by}) library_ms {lib:.4f}")
-        del q2, k2, v2
+    r.update(ms=t["ms"], library_ms=t["library_ms"])
+    r["bound_ms"], r["bound_by"] = t["bound"]
+    log(f"flash_attention (1, {H}, 1024, {hd}) f32 plain_ms "
+        f"{r['plain_ms']:.4f} max_abs_err {r['max_abs_err']:.3e}")
+    backend, kernels = _sdpa_kernel_name(torch, q, k, v)
+    log(f"sdpa at (1, {H}, 1024, {hd}) f32: backend {backend}, device "
+        f"kernels {kernels}")
     del q, k, v
+    # phase 7's longer prefill, and qwen3-32b's head geometry
+    for shape in ((2, 12, 12, 2048, 64), (1, 64, 8, 2048, 128)):
+        _flash_times(torch, fa, shape, gen)
     torch.cuda.empty_cache()
 
 
@@ -1228,6 +1319,12 @@ def serve_reference_check(torch, ckpt, server):
 # heads of 128)
 RMS_FULL = ((4096, 3584), (4096, 7168), (262_144, 128))
 RMS_EDGE = ((4, 64), (2, 8, 128), (1, 31, 33), (300, 256), (1, 1, 1, 16))
+# qwen3-32b's d_model over 4096 tokens (src/repro/configs/qwen3_32b.py), and a
+# wide D that is no multiple of the register tile (897 float4 over 128
+# threads)
+RMS_WIDE = ((4096, 5120), (4096, 3588))
+# bfloat16 at zamba2-7b's two widths (and at RMS_EDGE)
+RMS_BF16 = ((4096, 3584), (4096, 7168))
 RMS_F32 = dict(rtol=1e-6, atol=1e-6)            # sum order, rsqrt
 # B, c, L, H, N, P: zamba2-7b's SSD at full width (d_inner 7168 / P 64,
 # ssm_state 64, chunk 128) over a 4096-token sequence; the reference
@@ -1310,8 +1407,8 @@ def check_last_four(torch, results):
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
 
     # rmsnorm: float32 within RMS_F32, bfloat16 within one bfloat16 step
-    cases = [(s, torch.float32) for s in RMS_FULL + RMS_EDGE] + [
-        (s, torch.bfloat16) for s in RMS_FULL[:1] + RMS_EDGE]
+    cases = [(s, torch.float32) for s in RMS_FULL + RMS_WIDE + RMS_EDGE] + [
+        (s, torch.bfloat16) for s in RMS_BF16 + RMS_EDGE]
     for shape, dt in cases:
         x = torch.randn(shape, generator=gen, device=dev).to(dt)
         w = torch.randn(shape[-1:], generator=gen, device=dev) + 1.0
@@ -1323,11 +1420,11 @@ def check_last_four(torch, results):
         note("rmsnorm", compare(f"rmsnorm {shape} {dt}", got.float(),
                                 want.float(), **tol))
         del x, w, got, want
-    log(f"rmsnorm agrees with its plain version at {RMS_FULL} and "
-        f"{RMS_EDGE}, float32 (rtol 1e-6, atol 1e-6) and bfloat16 (one "
-        "bfloat16 step)")
-    for (rows, d), dt in [(s, torch.float32) for s in RMS_FULL] + [
-            (RMS_FULL[0], torch.bfloat16)]:
+    log(f"rmsnorm agrees with its plain version at {RMS_FULL + RMS_WIDE} "
+        f"and {RMS_EDGE}, float32 (rtol 1e-6, atol 1e-6), and at "
+        f"{RMS_BF16} and {RMS_EDGE}, bfloat16 (one bfloat16 step)")
+    for (rows, d), dt in [(s, torch.float32) for s in RMS_FULL + RMS_WIDE] + [
+            (s, torch.bfloat16) for s in RMS_BF16]:
         x = torch.randn((rows, d), generator=gen, device=dev).to(dt)
         w = torch.randn((d,), generator=gen, device=dev) + 1.0
         ms_ = time_ms(lambda: rn.rmsnorm(x, w, impl="cuda"), torch)
@@ -1335,9 +1432,9 @@ def check_last_four(torch, results):
         lib = time_ms(lambda: torch.nn.functional.rms_norm(
             x, (d,), w.to(dt), 1e-5), torch)
         bms, by = _rms_bound(rows, d, x.element_size())
-        log(f"rmsnorm ({rows}, {d}) {dt} kernel_ms {ms_:.4f} bound_ms "
-            f"{bms:.4f} ({by}) plain_ms {plain:.4f} library_ms {lib:.4f} "
-            "(F.rms_norm)")
+        log(f"rmsnorm ({rows}, {d}) {dt} layout {rn.layout(d, x.element_size())} "
+            f"kernel_ms {ms_:.4f} bound_ms {bms:.4f} ({by}) plain_ms "
+            f"{plain:.4f} library_ms {lib:.4f} (F.rms_norm)")
         if (rows, d) == RMS_FULL[0] and dt == torch.float32:
             results["rmsnorm"].update(ms=ms_, plain_ms=plain, library_ms=lib,
                                       bound_ms=bms, bound_by=by)
@@ -1596,6 +1693,8 @@ def main() -> int:
             elif "registers" in line:
                 log(f"  {stem} {entry}: {line.split(':', 1)[-1].strip()}; "
                     f"{spill}")
+    tf32_mma = sass_tf32_mma(build)
+    log(f"flash_attention library SASS: {tf32_mma} TF32 HMMA instructions")
 
     results = check_kernels(torch, K, ref)
     check_exchange_kernels(torch, exchange_epilogue, results)
@@ -1607,7 +1706,7 @@ def main() -> int:
         ckpt = os.path.join(tmp, "paper-lenet")
         counts, server = main_path(torch, K, exchange_epilogue, ckpt)
         profile_round(torch)
-        check_attention_kernels(torch, results)
+        check_attention_kernels(torch, results, tf32_mma)
         counts.update(serve_path(torch, ckpt, server, tmp))
         serve_reference_check(torch, ckpt, server)
     # neither package's training or serving path reaches the last four

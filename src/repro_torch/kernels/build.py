@@ -59,17 +59,18 @@ SIGNATURES = {
                                          _F),
     },
     "flash_attention": {
-        # q, k, v, out, B, H, KV, S, hd, bf16, stream, scale
+        # q, k, v, out, B, H, KV, S, hd, bf16, paired, stream, scale
         "repro_flash_attention": (_P, _P, _P, _P, _I64, _I64, _I64, _I64,
-                                  _I64, _I64, _P, _F),
+                                  _I64, _I64, _I64, _P, _F),
     },
     "sq_norm": {
         # x, partials, out, rows, n, blocks, stream
         "repro_sq_norm_groups": (_P, _P, _P, _I64, _I64, _I64, _P),
     },
     "rmsnorm": {
-        # x, w, out, rows, d, bf16, blocks, stream, eps
-        "repro_rmsnorm": (_P, _P, _P, _I64, _I64, _I64, _I64, _P, _F),
+        # x, w, out, rows, d, bf16, tpr, nv, threads, stream, eps
+        "repro_rmsnorm": (_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64,
+                          _P, _F),
     },
     "quantize": {
         # x, u, q, scales, rows, chunk, blocks, stream
