@@ -1,20 +1,18 @@
 #!/usr/bin/env python3
 """Times the port's ``rmsnorm`` and ``flash_attention`` kernels of one
 checkout on the GPU, beside the one PyTorch call that computes the same
-function, and holds each against its plain version.
+function, at ``chip_smoke.py``'s shapes, with its timing and its
+tolerances, and holds each against its plain version.
 
     python3 benchmarks/torch_kernel_ab.py [--src DIR] [--tag NAME]
 
-``--src`` is the ``src`` directory of the checkout whose
-``repro_torch`` is timed (default: this checkout's), so two trees can be
-timed in one process-per-tree sequence on one card (parent, change,
-change, parent). Each result is one JSON line on stdout with the card's
-name and power limit; times are CUDA-event medians of 20 launches after
-warm-up, of the device alone (``ms``) and with the host's time to issue
-the call (``call_ms``). Where the checkout's flash wrapper has more than
-one schedule (``tile_schedule``), each is timed, and where its rmsnorm
-picks a register layout (``layout``), every layout the kernel takes at
-that width is timed too (``sweep``). Needs one CUDA GPU; exits 1
+``--src`` is the ``src`` directory of the checkout whose ``repro_torch``
+is timed (default: this checkout's), so that two trees can be compared on
+one card in turns (parent, change, change, parent), one process each.
+Each result is one JSON line on stdout with the card's name and power
+limit: ``ms`` and ``library_ms`` are the call's time, ``device_ms`` and
+``library_device_ms`` the device's alone
+(``chip_smoke.call_and_device_ms``). Needs one CUDA GPU; exits 1
 without.
 """
 from __future__ import annotations
@@ -22,74 +20,17 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import statistics
 import subprocess
 import sys
 
-HERE = os.path.dirname(os.path.abspath(__file__))
-
-# (rows, D, dtype): zamba2-7b's d_model and d_inner, qwen3-32b's d_model
-# and qk-norm over 4096 tokens, and a wide D that is no multiple of the
-# register tile
-RMS = [(4096, 3584, "float32"), (4096, 7168, "float32"),
-       (262_144, 128, "float32"), (4096, 5120, "float32"),
-       (4096, 3588, "float32"), (4096, 3584, "bfloat16"),
-       (4096, 7168, "bfloat16")]
-# (B, H, KV, S, hd, dtype): paper-lenet's prefill, phase 7's long case,
-# qwen3-32b's head geometry (64 query heads over 8 KV heads of 128)
-FLASH = [(1, 12, 12, 1024, 64, "float32"), (2, 12, 12, 2048, 64, "float32"),
-         (1, 12, 12, 1024, 64, "bfloat16"), (1, 64, 8, 2048, 128, "float32")]
-ATTN_TOL = dict(rtol=1e-5, atol=1e-6)
-RMS_F32 = dict(rtol=1e-6, atol=1e-6)
-BF16_STEP = dict(rtol=2.0 ** -7, atol=1e-6)
-
-
-SLEEP_CYCLES = 2_000_000         # ~1 ms of the card's clock
-
-
-def time_ms(torch, fn, reps=20, warmup=3, ahead=True):
-    """Median ms between CUDA events around one call. ``ahead``: the card
-    is first held busy (``torch.cuda._sleep``) while the host enqueues the
-    events and the call, so the time is the device's alone; without it,
-    the host's time to issue the call is counted too."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        if ahead:
-            torch.cuda._sleep(SLEEP_CYCLES)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
-def rms_layouts(rn, d, itemsize):
-    """Every register layout the kernel takes at width d (a sweep)."""
-    nvec = d // (16 // itemsize)
-    out = [(t, -(-nvec // t), 256) for t in (1, 2, 4, 8, 16, 32)
-           if -(-nvec // t) <= rn.MAX_VECS]
-    out += [(t, -(-nvec // t), t) for t in rn.WIDE_THREADS
-            if -(-nvec // t) <= rn.MAX_VECS]
-    return [lay for lay in out if (lay[1] - 1) * lay[0] < nvec]
-
-
-def max_err(got, want, rtol, atol):
-    """Max abs error; raise where |got - want| > atol + rtol |want|."""
-    diff = (got - want).abs()
-    if bool((diff > atol + rtol * want.abs()).any()):
-        raise RuntimeError(f"kernel disagrees with its plain version (max "
-                           f"abs err {diff.max().item():.3e})")
-    return diff.max().item()
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+import chip_smoke as cs  # noqa: E402
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--src", default=os.path.join(HERE, "..", "src"))
+    ap.add_argument("--src", default=os.path.join(ROOT, "src"))
     ap.add_argument("--tag", default="")
     args = ap.parse_args()
     import torch
@@ -102,76 +43,61 @@ def main() -> int:
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as rn
 
-    smi = subprocess.run(
+    card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout
-    card = smi.strip().splitlines()[0]
+        capture_output=True, text=True, timeout=60,
+        check=True).stdout.strip().splitlines()[0]
+    src = os.path.abspath(args.src)
+    if not all(m.__file__.startswith(src) for m in (build, fa, rn)):
+        raise RuntimeError(f"repro_torch was not imported from {src}")
     build.load_all()
-    for stem in ("rmsnorm", "flash_attention"):
-        for line in build.build_log(stem).splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                print(f"# {stem}: {line.strip()}", file=sys.stderr)
 
     def emit(**rec):
         print(json.dumps(dict(tag=args.tag, card=card, **rec)), flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for rows, d, dt in RMS:
-        dtype = getattr(torch, dt)
-        x = torch.randn((rows, d), generator=gen, device="cuda").to(dtype)
+    for (rows, d), dt in [(s, torch.float32)
+                          for s in cs.RMS_FULL + cs.RMS_WIDE] + [
+            (s, torch.bfloat16) for s in cs.RMS_BF16]:
+        x = torch.randn((rows, d), generator=gen, device="cuda").to(dt)
         w = torch.randn((d,), generator=gen, device="cuda") + 1.0
-        got = rn.rmsnorm(x, w, impl="cuda")
-        want = rn.rmsnorm(x, w, impl="torch")
-        err = max_err(got.float(), want.float(),
-                      **(RMS_F32 if dt == "float32" else BF16_STEP))
-        call = lambda: rn.rmsnorm(x, w, impl="cuda")  # noqa: E731
-        lib = lambda: torch.nn.functional.rms_norm(  # noqa: E731
-            x, (d,), w.to(dtype), 1e-5)
-        rec = dict(ms=time_ms(torch, call), library_ms=time_ms(torch, lib),
-                   call_ms=time_ms(torch, call, ahead=False),
-                   library_call_ms=time_ms(torch, lib, ahead=False))
-        if hasattr(rn, "layout"):
-            rec["layout"] = rn.layout(d, x.element_size())
-            out = torch.empty_like(x)
-            sweep = {}
-            for tpr, nv, threads in rms_layouts(rn, d, x.element_size()):
-                sweep[f"{tpr}x{nv}/{threads}"] = time_ms(torch, lambda: build.launch(
-                    "rmsnorm", "repro_rmsnorm", x.data_ptr(), w.data_ptr(),
-                    out.data_ptr(), rows, d, int(dt == "bfloat16"), tpr, nv,
-                    threads, torch.cuda.current_stream().cuda_stream, 1e-5))
-            rec["sweep"] = sweep
-        emit(kernel="rmsnorm", shape=[rows, d], dtype=dt, max_abs_err=err,
-             **rec)
-        del x, w, got, want
-    for B, H, KV, S, hd, dt in FLASH:
-        dtype = getattr(torch, dt)
-        q = torch.randn((B, H, S, hd), generator=gen, device="cuda").to(dtype)
-        k = torch.randn((B, KV, S, hd), generator=gen, device="cuda").to(dtype)
-        v = torch.randn((B, KV, S, hd), generator=gen, device="cuda").to(dtype)
-        got = fa.flash_attention(q, k, v, impl="cuda")
-        if dt == "float32":
-            err = max_err(got.double(), ref.flash_attention_ref(
-                q.double(), k.double(), v.double()), **ATTN_TOL)
-        else:
-            err = max_err(got.float(), fa.flash_attention(
-                q.float(), k.float(), v.float(), impl="torch").to(dtype).float(),
-                **BF16_STEP)
-        call = lambda: fa.flash_attention(q, k, v, impl="cuda")  # noqa: E731
-        times = {"public": time_ms(torch, call),
-                 "public_call": time_ms(torch, call, ahead=False)}
-        if hasattr(fa, "tile_schedule"):
-            for paired in (False, True):
-                times["paired" if paired else "heaviest_first"] = time_ms(
-                    torch, lambda: fa.launch(q, k, v, paired))
-        kq, kv_ = ((k, v) if KV == H else
-                   (k.repeat_interleave(H // KV, 1), v.repeat_interleave(H // KV, 1)))
-        lib = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-            q, kq, kv_, is_causal=True)
-        emit(kernel="flash_attention", shape=[B, H, KV, S, hd], dtype=dt,
-             max_abs_err=err, ms=times, library_ms=time_ms(torch, lib),
-             library_call_ms=time_ms(torch, lib, ahead=False))
-        del q, k, v, got, kq, kv_
+        err = cs.compare(f"rmsnorm ({rows}, {d}) {dt}",
+                         rn.rmsnorm(x, w, impl="cuda").float(),
+                         rn.rmsnorm(x, w, impl="torch").float(),
+                         **(cs.RMS_F32 if dt == torch.float32
+                            else cs.BF16_STEP))
+        t = cs.call_and_device_ms(
+            torch, lambda: rn.rmsnorm(x, w, impl="cuda"),
+            lambda: torch.nn.functional.rms_norm(x, (d,), w.to(dt), 1e-5))
+        emit(kernel="rmsnorm", shape=[rows, d], dtype=str(dt),
+             max_abs_err=err, **t)
+        del x, w
+    for shape in cs.FLASH_TIMED:
+        q, k, v, t = cs._flash_times(torch, fa, shape, gen)
+        err = cs.compare(f"flash_attention {shape}",
+                         fa.flash_attention(q, k, v, impl="cuda").double(),
+                         ref.flash_attention_ref(q.double(), k.double(),
+                                                 v.double()), **cs.ATTN_TOL)
+        emit(kernel="flash_attention", shape=list(shape), dtype="float32",
+             max_abs_err=err, bound_ms=t.pop("bound")[0],
+             f32_bound_ms=t.pop("f32_bound")[0], **t)
+        del q, k, v
         torch.cuda.empty_cache()
+    # bfloat16 at paper-lenet's prefill
+    q, k, v = (torch.randn(cs.FLASH_TIMED[0][:2] + cs.FLASH_TIMED[0][3:],
+                           generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    err = cs.compare("flash_attention bf16",
+                     fa.flash_attention(q, k, v, impl="cuda").float(),
+                     fa.flash_attention(q.float(), k.float(), v.float(),
+                                        impl="torch").to(q.dtype).float(),
+                     **cs.BF16_STEP)
+    t = cs.call_and_device_ms(
+        torch, lambda: fa.flash_attention(q, k, v, impl="cuda"),
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True))
+    emit(kernel="flash_attention", shape=list(cs.FLASH_TIMED[0]),
+         dtype="bfloat16", max_abs_err=err, **t)
     return 0
 
 

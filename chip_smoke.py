@@ -71,9 +71,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    for flash, ``scaled_dot_product_attention(is_causal=True)`` (a
    yardstick the port never calls; no single PyTorch call computes paged
    attention; the profiler names SDPA's device kernel once). Flash is
-   timed under both schedules (heaviest first, paired) at (1, 12, 1024,
-   64), (2, 12, 2048, 64) and (1, 64, 8, 2048, 128), beside its float32
-   bound and the bound of its design (3xTF32 on the tensor cores);
+   timed at (1, 12, 1024, 64), (2, 12, 2048, 64) and (1, 64, 8, 2048,
+   128), beside the bound of its design (3xTF32 on the tensor cores) and
+   the float32 bound outside them. Times are those of the call (the
+   host's time to issue it counts); for flash, ``rmsnorm`` and their
+   library calls the device's alone is logged beside;
 8. the serve path at full width: phase 5's fp32 adamw server params, saved
    with ``checkpoint/io.save`` to a temporary directory and restored
    through ``serve.handoff.restore_params``, served as paper-lenet with
@@ -119,7 +121,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    anywhere. Each is timed at full width (CUDA events, median of 20)
    beside its bound, its plain version and, for ``rmsnorm`` and
    dequantize, one PyTorch call (``F.rms_norm``, ``torch.mul(q,
-   scales)``; yardsticks the port never calls). Then this slice's path:
+   scales)``; yardsticks the port never calls; for ``rmsnorm`` and its
+   library call the device's time is logged beside the call's). Then
+   this slice's path:
    with every count set to 0, each of the eleven ``ops`` functions is
    called once on the card (the last four at the full-width shapes, the
    others at small ones) against its plain version on the CPU, and every
@@ -217,25 +221,37 @@ def compare(name, got, want, rtol, atol):
     return err
 
 
-def time_ms(fn, torch, reps=20, warmup=3):
-    """Median ms of one call between CUDA events, the device's time alone:
-    the card is held busy (``torch.cuda._sleep``, ~1 ms) while the host
-    enqueues the start event and the call, so the host's time to issue a
-    short kernel is not counted (where issuing takes longer than the
-    sleep, as for a plain version of many small ops, part of it is)."""
+def time_ms(fn, torch, reps=20, warmup=3, device_only=False):
+    """Median ms of one call between CUDA events: the time of the call,
+    which counts the host's time to issue it where that is the longer (a
+    short kernel's). ``device_only``: the card is first held busy
+    (``torch.cuda._sleep``, ~1 ms) while the host enqueues the start event
+    and the call, so the time is the device's alone (where issuing takes
+    longer than the sleep, part of it still counts)."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SLEEP_CYCLES)
+        if device_only:
+            torch.cuda._sleep(SLEEP_CYCLES)
         a.record()
         fn()
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def call_and_device_ms(torch, kern, lib):
+    """The kernel's and the library call's ms, each as the call's time
+    (``ms``, ``library_ms``: the ``kernels`` line's measure) and as the
+    device's alone (``device_ms``, ``library_device_ms``)."""
+    return dict(ms=time_ms(kern, torch),
+                device_ms=time_ms(kern, torch, device_only=True),
+                library_ms=time_ms(lib, torch),
+                library_device_ms=time_ms(lib, torch, device_only=True))
 
 
 def bound(name, shape):
@@ -877,31 +893,35 @@ def _flash_bound(B, H, KV, S, hd, itemsize=4, tensor_cores=False):
     return bound_of(nbytes, ops)
 
 
+# the flash times of phase 7, (B, H, KV, S, hd) float32: paper-lenet's
+# prefill, a longer one, and qwen3-32b's head geometry (64 query heads
+# over 8 KV heads of 128)
+FLASH_TIMED = ((1, 12, 12, 1024, 64), (2, 12, 12, 2048, 64),
+               (1, 64, 8, 2048, 128))
+
+
 def _flash_times(torch, fa, shape, gen):
-    """Kernel ms under both schedules (heaviest first, paired), the
-    public entry point's schedule, SDPA's ms (the KV heads repeated for
-    it), and both bounds, at (B, H, KV, S, hd) float32."""
+    """The kernel's and SDPA's times (``call_and_device_ms``; the KV heads
+    repeated for SDPA) and both bounds, at (B, H, KV, S, hd) float32."""
     B, H, KV, S, hd = shape
     q = torch.randn((B, H, S, hd), generator=gen, device="cuda")
     k, v = (torch.randn((B, KV, S, hd), generator=gen, device="cuda")
             for _ in range(2))
     kr, vr = (k, v) if KV == H else (k.repeat_interleave(H // KV, 1),
                                      v.repeat_interleave(H // KV, 1))
-    t = {name: time_ms(lambda: fa.launch(q, k, v, paired), torch)
-         for name, paired in (("heaviest_first", False), ("paired", True))}
-    t["ms"] = time_ms(lambda: fa.flash_attention(q, k, v, impl="cuda"), torch)
-    t["library_ms"] = time_ms(
+    t = call_and_device_ms(
+        torch, lambda: fa.flash_attention(q, k, v, impl="cuda"),
         lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, kr, vr, is_causal=True), torch)
-    t["bound"] = _flash_bound(*shape)
-    t["tc_bound"] = _flash_bound(*shape, tensor_cores=True)
-    log(f"flash_attention {shape} f32 kernel_ms {t['ms']:.4f} (schedule "
-        f"{'paired' if fa.PAIRED else 'heaviest first'}; heaviest first "
-        f"{t['heaviest_first']:.4f}, paired {t['paired']:.4f}) bound_ms "
-        f"{t['tc_bound'][0]:.4f} ({t['tc_bound'][1]}: 3xTF32 at "
-        f"{TF32_OPS_PER_S / 1e12:.0f} TFLOP/s) f32-SIMT bound_ms "
-        f"{t['bound'][0]:.4f} ({t['bound'][1]}: {FP32_OPS_PER_S / 1e12:.0f} "
-        f"TFLOP/s) library_ms {t['library_ms']:.4f} (sdpa causal)")
+            q, kr, vr, is_causal=True))
+    t["bound"] = _flash_bound(*shape, tensor_cores=True)
+    t["f32_bound"] = _flash_bound(*shape)
+    log(f"flash_attention {shape} f32 kernel_ms {t['ms']:.4f} (device "
+        f"{t['device_ms']:.4f}) bound_ms {t['bound'][0]:.4f} "
+        f"({t['bound'][1]}: 3xTF32 at {TF32_OPS_PER_S / 1e12:.0f} TFLOP/s) "
+        f"f32-SIMT bound_ms {t['f32_bound'][0]:.4f} ({t['f32_bound'][1]}: "
+        f"{FP32_OPS_PER_S / 1e12:.0f} TFLOP/s) library_ms "
+        f"{t['library_ms']:.4f} (device {t['library_device_ms']:.4f}; sdpa "
+        "causal)")
     return q, k, v, t
 
 
@@ -1057,7 +1077,7 @@ def check_attention_kernels(torch, results, tf32_mma):
         f"plain_ms {r['plain_ms']:.4f} library_ms none (no single PyTorch "
         f"call) max_abs_err {r['max_abs_err']:.3e}")
     del q, pool
-    q, k, v, t = _flash_times(torch, fa, (1, H, H, 1024, hd), gen)
+    q, k, v, t = _flash_times(torch, fa, FLASH_TIMED[0], gen)
     r = results["flash_attention"]
     r["plain_ms"] = time_ms(lambda: fa.flash_attention(q, k, v, impl="torch"),
                             torch)
@@ -1069,8 +1089,7 @@ def check_attention_kernels(torch, results, tf32_mma):
     log(f"sdpa at (1, {H}, 1024, {hd}) f32: backend {backend}, device "
         f"kernels {kernels}")
     del q, k, v
-    # phase 7's longer prefill, and qwen3-32b's head geometry
-    for shape in ((2, 12, 12, 2048, 64), (1, 64, 8, 2048, 128)):
+    for shape in FLASH_TIMED[1:]:
         _flash_times(torch, fa, shape, gen)
     torch.cuda.empty_cache()
 
@@ -1427,16 +1446,19 @@ def check_last_four(torch, results):
             (s, torch.bfloat16) for s in RMS_BF16]:
         x = torch.randn((rows, d), generator=gen, device=dev).to(dt)
         w = torch.randn((d,), generator=gen, device=dev) + 1.0
-        ms_ = time_ms(lambda: rn.rmsnorm(x, w, impl="cuda"), torch)
+        t = call_and_device_ms(
+            torch, lambda: rn.rmsnorm(x, w, impl="cuda"),
+            lambda: torch.nn.functional.rms_norm(x, (d,), w.to(dt), 1e-5))
         plain = time_ms(lambda: rn.rmsnorm(x, w, impl="torch"), torch)
-        lib = time_ms(lambda: torch.nn.functional.rms_norm(
-            x, (d,), w.to(dt), 1e-5), torch)
         bms, by = _rms_bound(rows, d, x.element_size())
         log(f"rmsnorm ({rows}, {d}) {dt} layout {rn.layout(d, x.element_size())} "
-            f"kernel_ms {ms_:.4f} bound_ms {bms:.4f} ({by}) plain_ms "
-            f"{plain:.4f} library_ms {lib:.4f} (F.rms_norm)")
+            f"kernel_ms {t['ms']:.4f} (device {t['device_ms']:.4f}) bound_ms "
+            f"{bms:.4f} ({by}) plain_ms {plain:.4f} library_ms "
+            f"{t['library_ms']:.4f} (device {t['library_device_ms']:.4f}; "
+            "F.rms_norm)")
         if (rows, d) == RMS_FULL[0] and dt == torch.float32:
-            results["rmsnorm"].update(ms=ms_, plain_ms=plain, library_ms=lib,
+            results["rmsnorm"].update(ms=t["ms"], plain_ms=plain,
+                                      library_ms=t["library_ms"],
                                       bound_ms=bms, bound_by=by)
         del x, w
     torch.cuda.empty_cache()

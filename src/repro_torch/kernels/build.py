@@ -59,9 +59,9 @@ SIGNATURES = {
                                          _F),
     },
     "flash_attention": {
-        # q, k, v, out, B, H, KV, S, hd, bf16, paired, stream, scale
+        # q, k, v, out, B, H, KV, S, hd, bf16, stream, scale
         "repro_flash_attention": (_P, _P, _P, _P, _I64, _I64, _I64, _I64,
-                                  _I64, _I64, _I64, _P, _F),
+                                  _I64, _I64, _P, _F),
     },
     "sq_norm": {
         # x, partials, out, rows, n, blocks, stream

@@ -60,11 +60,11 @@
 // the diagonal tile and the one holding S's end are masked (-1e30, as the
 // reference); the final division clamps l at 1e-30.
 //
-// Schedule: blocks of the grid's x axis take query tiles in pairs (tiles
-// nq - 1 - x and x, one after the other, so every block does nq + 1 key
-// tiles), or heaviest first (tile nq - 1 - x); kernels/flash_attention.py
-// tile_schedule mirrors both, and its PAIRED picks the pairs, which
-// measured faster at every timed shape (PERF.md). No atomics and no split
+// Schedule: block x of the grid's x axis takes query tiles nq - 1 - x and
+// x, one after the other, so every block does nq + 1 key tiles (the middle
+// tile alone where nq is odd); kernels/flash_attention.py tile_schedule
+// mirrors it. Against one tile a block, heaviest first, it measured 17-20%
+// faster at head dim 64 and level at 128 (PERF.md). No atomics and no split
 // over keys: every sum runs in a fixed order, so a rerun gives the same
 // bits. Offsets are 64-bit; B * H <= 65535 (the grid's y axis).
 #include <cuda_bf16.h>
@@ -362,8 +362,7 @@ __device__ __forceinline__ void tile_step(const float* qs, const T* ks, const T*
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ out, int64_t H, int64_t KV, int64_t S, int paired,
-                 float scale) {
+                 T* __restrict__ out, int64_t H, int64_t KV, int64_t S, float scale) {
   using L = Smem<T, HD>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* qs = reinterpret_cast<float*>(smem_raw);
@@ -380,7 +379,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int nq = static_cast<int>((S + kRowsQ - 1) / kRowsQ);
   // the query tiles of this block (tile_schedule in kernels/flash_attention.py)
   const int first = nq - 1 - static_cast<int>(blockIdx.x);
-  const int ntiles = paired && first != static_cast<int>(blockIdx.x) ? 2 : 1;
+  const int ntiles = first != static_cast<int>(blockIdx.x) ? 2 : 1;
 
   for (int n = 0; n < ntiles; ++n) {
     const int64_t q0 = static_cast<int64_t>(n == 0 ? first : blockIdx.x) * kRowsQ;
@@ -438,30 +437,28 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int64_t B, int64_t H,
-           int64_t KV, int64_t S, bool paired, cudaStream_t stream, float scale) {
+           int64_t KV, int64_t S, cudaStream_t stream, float scale) {
   constexpr int smem = Smem<T, HD>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t nq = (S + kRowsQ - 1) / kRowsQ;
-  const dim3 grid(static_cast<unsigned>(paired ? (nq + 1) / 2 : nq),
-                  static_cast<unsigned>(B * H));
+  const dim3 grid(static_cast<unsigned>((nq + 1) / 2), static_cast<unsigned>(B * H));
   flash_fwd_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), H, KV, S, paired ? 1 : 0, scale);
+      static_cast<T*>(out), H, KV, S, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_hd(const void* q, const void* k, const void* v, void* out, int64_t B,
-              int64_t H, int64_t KV, int64_t S, int64_t hd, bool paired, cudaStream_t s,
-              float scale) {
+              int64_t H, int64_t KV, int64_t S, int64_t hd, cudaStream_t s, float scale) {
   switch (hd) {
-    case 8: return launch<T, 8>(q, k, v, out, B, H, KV, S, paired, s, scale);
-    case 16: return launch<T, 16>(q, k, v, out, B, H, KV, S, paired, s, scale);
-    case 32: return launch<T, 32>(q, k, v, out, B, H, KV, S, paired, s, scale);
-    case 64: return launch<T, 64>(q, k, v, out, B, H, KV, S, paired, s, scale);
-    case 128: return launch<T, 128>(q, k, v, out, B, H, KV, S, paired, s, scale);
+    case 8: return launch<T, 8>(q, k, v, out, B, H, KV, S, s, scale);
+    case 16: return launch<T, 16>(q, k, v, out, B, H, KV, S, s, scale);
+    case 32: return launch<T, 32>(q, k, v, out, B, H, KV, S, s, scale);
+    case 64: return launch<T, 64>(q, k, v, out, B, H, KV, S, s, scale);
+    case 128: return launch<T, 128>(q, k, v, out, B, H, KV, S, s, scale);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -470,14 +467,13 @@ int launch_hd(const void* q, const void* k, const void* v, void* out, int64_t B,
 
 // q, out: (B, H, S, hd); k, v: (B, KV, S, hd); all contiguous and 16-byte
 // aligned, float32 (bf16 = 0) or bfloat16 (bf16 = 1); hd in {8, 16, 32,
-// 64, 128}; B * H <= 65535; paired: the schedule (see above); scale:
-// 1/sqrt(hd) as the caller rounded it.
+// 64, 128}; B * H <= 65535; scale: 1/sqrt(hd) as the caller rounded it.
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v,
                                      void* out, int64_t B, int64_t H, int64_t KV,
-                                     int64_t S, int64_t hd, int64_t bf16, int64_t paired,
-                                     void* stream, float scale) {
+                                     int64_t S, int64_t hd, int64_t bf16, void* stream,
+                                     float scale) {
   if (B <= 0 || S <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_hd<__nv_bfloat16>(q, k, v, out, B, H, KV, S, hd, paired != 0, s, scale)
-              : launch_hd<float>(q, k, v, out, B, H, KV, S, hd, paired != 0, s, scale);
+  return bf16 ? launch_hd<__nv_bfloat16>(q, k, v, out, B, H, KV, S, hd, s, scale)
+              : launch_hd<float>(q, k, v, out, B, H, KV, S, hd, s, scale);
 }

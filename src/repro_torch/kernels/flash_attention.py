@@ -20,18 +20,15 @@ from repro_torch.kernels.ref import flash_attention_ref
 
 launches = 0     # kernel launches since the count was last set to 0
 HEAD_DIMS = (8, 16, 32, 64, 128)
-TILE = 64        # query rows of a block (the kernel's kRowsQ)
-PAIRED = True    # the schedule the kernel takes (tile_schedule): the faster on the card
+TILE = 64        # query rows of a tile (the kernel's kRowsQ)
 
 
-def tile_schedule(S: int, paired: bool) -> list:
+def tile_schedule(S: int) -> list:
     """The query tiles each block along the kernel's grid x axis takes, in
-    order (every (b, h) pair has its own row of such blocks): heaviest
-    first, one tile a block; or paired, tiles nq - 1 - x and x, so every
-    block does nq + 1 key tiles (the middle tile alone where nq is odd)."""
+    order (every (b, h) pair has its own row of such blocks): block x
+    takes tiles nq - 1 - x and x, so every block does nq + 1 key tiles
+    (the middle tile alone where nq is odd)."""
     nq = -(-S // TILE)
-    if not paired:
-        return [[nq - 1 - x] for x in range(nq)]
     return [[nq - 1 - x] + ([x] if x != nq - 1 - x else [])
             for x in range((nq + 1) // 2)]
 
@@ -42,6 +39,7 @@ def flash_attention(q, k, v, *, block_q: int = 128, block_k: int = 128,
     q.dtype, causal. ``block_q``/``block_k`` are the reference's tiling:
     S must be a multiple of each (after clamping them to S), as the
     reference asserts; the CUDA kernel tiles by 64 on its own."""
+    global launches
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
         raise ValueError(f"expected q (B,H,S,hd) and k, v (B,KV,S,hd), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -69,7 +67,14 @@ def flash_attention(q, k, v, *, block_q: int = 128, block_k: int = 128,
         raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
     if B * H > 65535:
         raise ValueError("flash_attention: at most 65535 (batch, head) pairs")
-    return launch(q, k, v, PAIRED)
+    q, k, v = (_aligned(t) for t in (q, k, v))
+    out = torch.empty_like(q)
+    build.launch("flash_attention", "repro_flash_attention", q.data_ptr(),
+                 k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, KV, S, hd,
+                 int(q.dtype == torch.bfloat16), stream_of(q),
+                 1.0 / math.sqrt(hd))
+    launches += 1
+    return out
 
 
 def _aligned(t):
@@ -77,18 +82,3 @@ def _aligned(t):
     copies are 16 bytes): a view that starts off the grain is copied."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
-def launch(q, k, v, paired: bool):
-    """Launch the kernel on checked CUDA tensors under one schedule (the
-    public entry point passes PAIRED; a benchmark may time both)."""
-    global launches
-    B, H, S, hd = q.shape
-    q, k, v = (_aligned(t) for t in (q, k, v))
-    out = torch.empty_like(q)
-    build.launch("flash_attention", "repro_flash_attention", q.data_ptr(),
-                 k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
-                 k.shape[1], S, hd, int(q.dtype == torch.bfloat16),
-                 int(paired), stream_of(q), 1.0 / math.sqrt(hd))
-    launches += 1
-    return out

@@ -82,25 +82,22 @@ def test_rmsnorm_layout_by_width():
     assert rn.layout(33, 4)[1] == rn.layout(3584, 4, False)[1] == 0
 
 
-@pytest.mark.parametrize("S", [1, 16, 40, 64, 65, 256, 1000, 1024, 1088,
-                               2048])
-@pytest.mark.parametrize("paired", [False, True])
-def test_flash_schedule_visits_each_tile_once(S, paired):
+@pytest.mark.parametrize("S", [1, 16, 40, 63, 64, 65, 127, 128, 129, 256,
+                               1000, 1024, 1088, 2048, 4097])
+def test_flash_schedule_visits_each_tile_once(S):
     B, H = 2, 3                       # the grid's y axis: one row per (b, h)
     nq = -(-S // fa.TILE)
-    sched = fa.tile_schedule(S, paired)
+    sched = fa.tile_schedule(S)
     seen = {}
     for bh in range(B * H):
         for x, tiles in enumerate(sched):
-            # the kernel: first = nq - 1 - x, then x where paired
-            assert tiles[0] == nq - 1 - x
+            # the kernel: first = nq - 1 - x, then x unless it is the same
+            assert tiles == ([nq - 1 - x] + ([x] if x != nq - 1 - x else []))
             for tile in tiles:
                 seen[(tile, bh)] = seen.get((tile, bh), 0) + 1
     assert seen == {(i, bh): 1 for i in range(nq) for bh in range(B * H)}
+    assert len(sched) == (nq + 1) // 2    # the kernel's grid x
     work = [sum(i + 1 for i in tiles) for tiles in sched]  # key tiles
-    if paired:
-        assert len(sched) == (nq + 1) // 2
-        assert all(w == nq + 1 for w in work[:nq // 2])
-    else:
-        assert work == sorted(work, reverse=True)        # heaviest first
-    assert fa.PAIRED in (False, True)
+    assert all(w == nq + 1 for w in work[:nq // 2])
+    if nq % 2:
+        assert work[-1] == nq // 2 + 1    # the middle tile alone
