@@ -12,20 +12,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    counted (``cuobjdump -sass``);
 3. each kernel against its plain PyTorch version on the card, at the main
    path's shape (4, 124,662,528), a ragged (3, 1,000,003) and a few
-   tiny ragged shapes, with a row switched off by the ``active`` mask; adamw at counts 1 and 1000 (and
-   one count per row) with wd 0 and 0.01. Tolerances: the updates rtol
-   1e-6 / atol 1e-7 (they are written to round like the plain version),
-   the norm rtol 1e-5 (another summation order) and bit-equal on a rerun.
+   tiny ragged shapes, with a row switched off by the ``active`` mask
+   (and ``fused_sgd`` with one row on); adamw at counts 1 and 1000 (and
+   one count per row) with wd 0 and 0.01. Tolerances: ``fused_sgd``
+   bit-equal, momentum and adamw rtol 1e-6 / atol 1e-7 (they are written
+   to round like the plain version), the norm rtol 1e-5 (another
+   summation order), bit-equal on a rerun and one device kernel a call
+   (counted by ``torch.profiler``).
    The exchange kernels must equal their plain versions bit for bit:
    ``codec_mix`` in every kind, on the mean and with the ring and gossip
    W at hops 1 and 2, at (4, 124,662,528), (8, 62,331,264), (3,
    1,000,003) and tiny ragged shapes up to G = 16; ``qdq_int8`` at
    (1,947,852, 256), on ragged row counts with all-zero chunks, and
-   through int8z's pinned noise. Each kernel is timed with CUDA events
+   through int8z's pinned noise, and at chunks 128, 512 and 37. The
+   exchanges the fused kernel does not take (G 32: int8 on server and
+   ring, top-k, fp16, bf16; int8 chunks 128 and 512) run staged on the
+   card, with no ``codec_mix`` launch, bit-equal to the same exchange
+   with the plain versions. Each kernel is timed with CUDA events
    (median of 20 launches after warm-up) beside its bound, its plain
    version and one PyTorch library call that computes the same function
    (a yardstick the port never calls; none exists for the exchange
-   kernels);
+   kernels); for the update and norm kernels and their library calls the
+   device's time is logged beside the call's, and the host's time of each
+   part of the ``fused_sgd`` and ``sq_norm_groups`` wrappers;
 4. a small reference check: the packed round on a paper-mlp reduction,
    on the card with the kernels and on the CPU with the plain versions,
    from the same params and batches: fp32 momentum and adamw, and the
@@ -50,14 +59,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``paged_decode_attention`` at paper-lenet's geometry (B 8, H = KV 12,
    hd 64, page 16, 66 blocks, lengths over 1-1056 with page edges, a slot
    on the trash row; float32 and bfloat16 queries), qwen3-32b's head
-   geometry (KV 8, g 8, hd 128, page 16, lengths up to 4096) and tiny
-   ragged ones (GQA, MHA, MQA); ``flash_attention`` at paper-lenet's
-   prefill (1, 12, 1024, 64) float32, (2, 12, 2048, 64), a bfloat16 case,
+   geometry (KV 8, g 8, hd 128, page 16, lengths up to 4096), tiny
+   ragged ones (GQA, MHA, MQA), g 3, 6 (nemotron-4-15b) and 16
+   (llama3-405b) and hd 112 (zamba2-7b); ``flash_attention`` at
+   paper-lenet's prefill (1, 12, 1024, 64) float32, (2, 12, 2048, 64), a bfloat16 case,
    GQA at qwen3-32b's head_dim 128, tiny shapes (unequal blocks, a
    sequence that is no multiple of the kernel's 64-row tile), S 1000 and
    1088 (no multiple of 128), qwen3-32b's head geometry at (1, 64, 8,
-   2048, 128) and head dims 8 and 16 at length; flash must give the same
-   bits on a rerun, and phase 2's count of TF32 HMMA instructions must
+   2048, 128), head dims 8 and 16 at length, zamba2-7b's hd 112 (32
+   heads) and hd 40 and 96 (zero-padded to 64 and 112); flash must give
+   the same bits on a rerun, and phase 2's count of TF32 HMMA instructions must
    not be 0 (the tensor-core path is the one built).
    Tolerances: float32 rtol 1e-5 / atol 1e-6 (the sums run in another
    order, so bits may differ), flash against its plain version evaluated
@@ -71,9 +82,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    for flash, ``scaled_dot_product_attention(is_causal=True)`` (a
    yardstick the port never calls; no single PyTorch call computes paged
    attention; the profiler names SDPA's device kernel once). Flash is
-   timed at (1, 12, 1024, 64), (2, 12, 2048, 64) and (1, 64, 8, 2048,
-   128), beside the bound of its design (3xTF32 on the tensor cores) and
-   the float32 bound outside them. Times are those of the call (the
+   timed at (1, 12, 1024, 64), (2, 12, 2048, 64), (1, 64, 8, 2048,
+   128) and (1, 32, 32, 2048, 112), beside the bound of its design
+   (3xTF32 on the tensor cores) and the float32 bound outside them. Times are those of the call (the
    host's time to issue it counts); for flash, ``rmsnorm`` and their
    library calls the device's alone is logged beside;
 8. the serve path at full width: phase 5's fp32 adamw server params, saved
@@ -130,6 +141,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernel must have been launched once (``sq_norm_groups`` twice:
    ``sq_norm`` is its one-row case; the exchange kernels, which ``ops``
    does not front, not at all).
+
+``python3 chip_smoke.py --time-calls [--src DIR] [--tag NAME]`` runs
+none of the phases: it times the update and norm kernels of the tree
+under ``DIR`` (default this checkout's ``src``) beside their library
+calls, on both yardsticks, and their wrappers' parts, one JSON line each
+(``time_calls``), so that two trees are compared on one card in turns.
 
 The line before the last is one JSON object with each kernel's numbers
 (the launches of phases 5 and 8 for the first eight, of phase 10's
@@ -289,15 +306,8 @@ def check_kernels(torch, K, ref):
         for active in (None, mask):
             tag = f"{shape} " + ("all rows" if active is None
                                  else f"row {off} off")
-            # sgd
-            kp = p.clone()
-            K.fused_sgd.fused_sgd(kp, g, lr=0.05, active=active, impl="cuda")
-            wp = p.clone()
-            K.fused_sgd.fused_sgd(wp, g, lr=0.05, active=active, impl="torch")
-            note("fused_sgd", compare(f"fused_sgd {tag}", kp, wp, **EW_TOL))
-            if active is not None and not torch.equal(kp[off], p[off]):
-                fail("fused_sgd changed an inactive row")
-            del kp, wp
+            # sgd: bit-equal
+            _sgd_case(torch, K, p, g, active, tag, note)
             # momentum
             kp, kmu = p.clone(), m.clone()
             K.fused_momentum.fused_momentum(kp, g, kmu, lr=0.05, beta=0.9,
@@ -331,6 +341,12 @@ def check_kernels(torch, K, ref):
                             f"{count.tolist()} wd {wd}", k, w, **EW_TOL))
                     note("fused_adamw", max(errs))
                     del kp, km, kv, want
+        if rows > 1:
+            # a step of the per-group T_i schedule: one active row
+            only = torch.zeros(rows, dtype=torch.bool, device=dev)
+            only[off] = True
+            _sgd_case(torch, K, p, g, only, f"{shape} only row {off} on",
+                      note)
         # the norm, twice: the reduction must not depend on block order
         s1 = K.sq_norm.sq_norm_groups(p, impl="cuda")
         s2 = K.sq_norm.sq_norm_groups(p, impl="cuda")
@@ -374,19 +390,62 @@ def check_kernels(torch, K, ref):
             }
             for name, (kern, plain, lib) in timed.items():
                 r = results[name]
-                r["ms"] = time_ms(kern, torch)
+                t = call_and_device_ms(torch, kern, lib)
+                r.update(ms=t["ms"], library_ms=t["library_ms"])
                 r["plain_ms"] = time_ms(plain, torch)
-                r["library_ms"] = time_ms(lib, torch)
                 r["bound_ms"], r["bound_by"] = bound(name, MAIN)
-                log(f"{name:15s} kernel_ms {r['ms']:.4f} bound_ms "
+                log(f"{name:15s} kernel_ms {r['ms']:.4f} (device "
+                    f"{t['device_ms']:.4f}) bound_ms "
                     f"{r['bound_ms']:.4f} ({r['bound_by']}: "
                     f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s, "
                     f"{FP32_OPS_PER_S / 1e12:.0f} TFLOP/s f32, H100 SXM data "
                     f"sheet) plain_ms {r['plain_ms']:.4f} library_ms "
-                    f"{r['library_ms']:.4f} max_abs_err {r['max_abs_err']:.3e}")
+                    f"{r['library_ms']:.4f} (device "
+                    f"{t['library_device_ms']:.4f}) max_abs_err "
+                    f"{r['max_abs_err']:.3e}")
+            _sq_norm_launches(torch, K, p)
+            log("wrapper host us per call, (4, 4096): " + ", ".join(
+                f"{k} {v:.2f}" for k, v in wrapper_parts(
+                    torch, K, K.build).items()))
         del p, g, m, v
         torch.cuda.empty_cache()
     return results
+
+
+def _sgd_case(torch, K, p, g, active, tag, note):
+    """fused_sgd against its plain version, bit for bit; rows that are not
+    active must keep their values."""
+    kp = p.clone()
+    K.fused_sgd.fused_sgd(kp, g, lr=0.05, active=active, impl="cuda")
+    wp = p.clone()
+    K.fused_sgd.fused_sgd(wp, g, lr=0.05, active=active, impl="torch")
+    err = (kp - wp).abs_().max().item()
+    note("fused_sgd", err)
+    if not torch.equal(kp, wp):
+        fail(f"fused_sgd {tag}: differs from the plain version (max abs "
+             f"err {err:.3e})")
+    if active is not None and not torch.equal(kp[~active], p[~active]):
+        fail(f"fused_sgd {tag}: changed an inactive row")
+    del kp, wp
+
+
+def _sq_norm_launches(torch, K, x, calls=5):
+    """sq_norm_groups is one launch a call: the profiler counts the
+    device kernels of ``calls`` calls at ``x``."""
+    from torch.profiler import ProfilerActivity, profile
+    K.sq_norm.sq_norm_groups(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            K.sq_norm.sq_norm_groups(x)
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+    if sum(kernels.values()) != calls:
+        fail(f"sq_norm_groups: {calls} calls ran the device kernels "
+             f"{kernels}, not one each")
+    log(f"sq_norm_groups: {calls} calls, device kernels {kernels}")
 
 
 def check_exchange_kernels(torch, ee, results):
@@ -502,6 +561,71 @@ def check_exchange_kernels(torch, ee, results):
             r.update(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
                      library_ms=None)
     del x, x0, res, out, res_out, u2
+    torch.cuda.empty_cache()
+
+
+# Exchanges the fused kernel does not take, which take the staged codecs
+# on the card (topology, codec, G, int8 chunk), at N = COVER_N: G 32 as a
+# 32-worker run would send them, and int8 chunks other than 256
+COVER_N = 100_003
+COVER = [("server", "int8", 32, 256), ("ring", "int8", 32, 256),
+         ("server", "topk", 32, 256), ("server", "fp16", 32, 256),
+         ("gossip", "bf16", 32, 256), ("server", "int8", 4, 128),
+         ("ring", "int8", 4, 512)]
+
+
+def check_exchange_coverage(torch, ee, results):
+    """Phase 3: the staged int8 core ``qdq_int8`` at chunks 128, 512 and
+    37, bit-equal to its plain version; then each ``COVER`` exchange on
+    the card, with the codecs' kernels and with their plain versions,
+    from the same inputs and noise: equal bits, no ``codec_mix`` launch
+    (the exchange routes these streams to the staged codecs) and one
+    ``qdq_int8`` launch per int8 hop."""
+    from repro_torch.comm import exchange
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for rows_n, chunk in ((3907, 128), (3907, 512), (9, 37), (1, 512)):
+        x = torch.randn((rows_n, chunk), generator=gen, device=dev)
+        x[rows_n // 2] = 0.0
+        u = torch.rand((rows_n, chunk), generator=gen, device=dev)
+        got = ee.qdq_int8(x, u, impl="cuda")
+        if not torch.equal(got, ee.qdq_int8(x, u, impl="torch")):
+            fail(f"qdq_int8 ({rows_n}, {chunk}): differs from the plain "
+                 "version")
+    log("qdq_int8 equals its plain version at chunks 128, 512 and 37")
+    for topo, codec, g, chunk in COVER:
+        x0 = torch.randn((1, COVER_N), generator=gen, device=dev).repeat(g, 1)
+        x = x0 + 0.01 * torch.randn((g, COVER_N), generator=gen, device=dev)
+        hops = 2 if topo == "ring" else 1
+        out, launched = {}, None
+        for impl in ("auto", "torch"):
+            ex = exchange.get_exchange(topo, codec, g, chunk=chunk,
+                                       mix_rounds=hops, seed=3, impl=impl)
+            before = dict(ee.launches)
+            mixed, _ = ex.streams({"params": x.clone()},
+                                   {"params": x0.clone()},
+                                   ex.init(x0.clone()))
+            got = {k: v - before[k] for k, v in ee.launches.items()}
+            want = {"codec_mix": 0,
+                    "qdq_int8": hops if codec == "int8" and impl == "auto"
+                    else 0}
+            if got != want:
+                fail(f"exchange {topo} {codec} G {g} chunk {chunk} "
+                     f"impl={impl}: launches {got}, expected {want}")
+            out[impl] = mixed["params"]
+            launched = launched if impl == "torch" else got
+        what = f"exchange {topo} {codec} G {g} chunk {chunk}"
+        err = (out["auto"] - out["torch"]).abs().max().item()
+        if not torch.equal(out["auto"], out["torch"]):
+            fail(f"{what}: the card's kernels differ from the plain versions "
+                 f"(max abs err {err:.3e})")
+        if codec == "int8":
+            results["qdq_int8"]["max_abs_err"] = max(
+                results["qdq_int8"]["max_abs_err"], err)
+        log(f"{what}: staged on the card (launches {launched}), equal to "
+            "the plain versions")
+        del x0, x, out
     torch.cuda.empty_cache()
 
 
@@ -822,7 +946,7 @@ def profile_round(torch):
     log(f"profile: adamw round {wall_ms:.1f} ms fenced (profiler on), "
         f"device busy {busy_ms:.1f} ms = {busy_ms / wall_ms:.1%}, "
         f"{sum(e.count for e in kernels)} kernel launches")
-    groups = {"port kernels": ("update_rows", "sq_norm_"),
+    groups = {"port kernels": ("update_rows", "sgd_strips", "sq_norm_"),
               "matmul": ("gemm", "sm90", "cutlass", "splitK", "Kernel2"),
               "copy/fill": ("copy", "fill", "Memcpy", "Memset")}
     shares = dict.fromkeys(list(groups) + ["other"], 0.0)
@@ -898,6 +1022,8 @@ def _flash_bound(B, H, KV, S, hd, itemsize=4, tensor_cores=False):
 # over 8 KV heads of 128)
 FLASH_TIMED = ((1, 12, 12, 1024, 64), (2, 12, 12, 2048, 64),
                (1, 64, 8, 2048, 128))
+# zamba2-7b's shared attention (32 heads of 112), timed beside them
+FLASH_112 = (1, 32, 32, 2048, 112)
 
 
 def _flash_times(torch, fa, shape, gen):
@@ -975,6 +1101,14 @@ def check_attention_kernels(torch, results, tf32_mma):
         (dict(B=3, n_kv=2, g=2, hd=8, ps=4, nblk=5), [1, 7, 20], (1,)),
         (dict(B=5, n_kv=4, g=1, hd=16, ps=8, nblk=3), [24, 9, 1, 8, 16], ()),
         (dict(B=2, n_kv=1, g=8, hd=32, ps=4, nblk=2), [5, 8], ()),
+        # head groups of 3, nemotron-4-15b's 6 and llama3-405b's 16, and
+        # zamba2-7b's head dim 112 (alone and with 16 heads a KV head)
+        (dict(B=3, n_kv=4, g=3, hd=64, ps=16, nblk=20), [320, 1, 77], (1,)),
+        (dict(B=3, n_kv=8, g=6, hd=128, ps=16, nblk=64), [1024, 513, 1], ()),
+        (dict(B=2, n_kv=8, g=16, hd=128, ps=16, nblk=128), [2048, 17], ()),
+        (dict(B=4, n_kv=32, g=1, hd=112, ps=16, nblk=32), [512, 1, 300, 17],
+         ()),
+        (dict(B=2, n_kv=2, g=16, hd=112, ps=8, nblk=9), [72, 5], ()),
     ]
 
     def note(name, err):
@@ -1019,6 +1153,12 @@ def check_attention_kernels(torch, results, tf32_mma):
         (1, 4, 2, 520, 8, torch.float32, 520, 520),
         (2, 4, 4, 384, 16, torch.float32, 128, 128),
         (1, 4, 4, 384, 16, torch.bfloat16, 128, 128),
+        # zamba2-7b's heads (32 of 112), and head dims padded to the next
+        # instantiation (40 -> 64, 96 -> 112)
+        (1, 32, 32, 1024, 112, torch.float32, 128, 128),
+        (1, 8, 2, 384, 112, torch.bfloat16, 128, 128),
+        (1, 4, 4, 200, 40, torch.float32, 200, 200),
+        (1, 4, 2, 256, 96, torch.float32, 128, 128),
     ]
     if tf32_mma == 0:
         fail("flash_attention: no TF32 HMMA instruction in the library's "
@@ -1089,7 +1229,7 @@ def check_attention_kernels(torch, results, tf32_mma):
     log(f"sdpa at (1, {H}, 1024, {hd}) f32: backend {backend}, device "
         f"kernels {kernels}")
     del q, k, v
-    for shape in FLASH_TIMED[1:]:
+    for shape in FLASH_TIMED[1:] + (FLASH_112,):
         _flash_times(torch, fa, shape, gen)
     torch.cuda.empty_cache()
 
@@ -1673,6 +1813,135 @@ def _kernel_name(mangled):
                    else "")
 
 
+def _host_us(fn, reps):
+    """Mean host microseconds of one call of ``fn`` over ``reps`` calls (a
+    warm-up first), the queue drained before and after."""
+    import torch
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def wrapper_parts(torch, K, build, reps=5000):
+    """Host microseconds per call of each part of the ``fused_sgd`` and
+    ``sq_norm_groups`` wrappers, of whichever tree ``K`` comes from, and
+    of the whole calls at a tiny (4, 4096) beside their library calls,
+    where the host's time is the call's. A part the tree does not have is
+    absent. ``ctypes`` calls the launcher with zero sizes: the argument
+    conversion and the call, no launch."""
+    import ctypes
+    dev = torch.device("cuda")
+    p = torch.randn((4, 4096), device=dev)
+    g = torch.randn((4, 4096), device=dev)
+    mask = torch.ones(4, dtype=torch.bool, device=dev)
+    lookup = getattr(build, "launcher", None)
+    if lookup is None:
+        def lookup(stem, name):
+            return getattr(build.load_all()[stem], name)
+    fn = lookup("fused_update", "repro_fused_sgd")
+    zeros = [0.0 if t is ctypes.c_float else 0
+             for t in build.SIGNATURES["fused_update"]["repro_fused_sgd"]]
+    parts = {
+        "check_rows": lambda: K.check_rows("fused_sgd", p, g),
+        "check_active": lambda: K.check_active("fused_sgd", mask, 4,
+                                               p.device),
+        "resolve_impl": lambda: K.resolve_impl("auto", p.device),
+        "blocks_per_row": (lambda: K.blocks_per_row(p))
+        if hasattr(K, "blocks_per_row") else None,
+        "stream_of": lambda: K.stream_of(p),
+        "launcher lookup": lambda: lookup("fused_update", "repro_fused_sgd"),
+        "ctypes": lambda: fn(*zeros),
+        "torch.empty (4,)": lambda: torch.empty((4,), device=dev),
+        "fused_sgd call": lambda: K.fused_sgd.fused_sgd(p, g, lr=0.0),
+        "p.add_ call": lambda: p.add_(g, alpha=-0.0),
+        "sq_norm_groups call": lambda: K.sq_norm.sq_norm_groups(p),
+        "vector_norm call": lambda: torch.linalg.vector_norm(p, dim=1),
+    }
+    out = {k: _host_us(f, reps) for k, f in parts.items() if f is not None}
+    # the device's time of the tiny calls, to tell the host's time apart
+    for k, f in (("fused_sgd device", parts["fused_sgd call"]),
+                 ("sq_norm_groups device", parts["sq_norm_groups call"])):
+        out[k] = time_ms(f, torch, device_only=True) * 1e3
+    return out
+
+
+def time_calls(args) -> int:
+    """``--time-calls [--src DIR] [--tag NAME]``: the update and norm
+    kernels of the tree under ``DIR`` (default this checkout's ``src``),
+    each against its plain version at MAIN (``fused_sgd`` bit-equal) and
+    timed beside its library call on both yardsticks
+    (``call_and_device_ms``), and its wrapper's parts
+    (``wrapper_parts``). One JSON line per result, with the card's name
+    and power limit, so that two trees are compared on one card in turns
+    (parent, change, change, parent), one process each."""
+    import torch
+    src = os.path.abspath(args[args.index("--src") + 1]
+                          if "--src" in args else SRC)
+    tag = args[args.index("--tag") + 1] if "--tag" in args else ""
+    sys.path.insert(0, src)
+    from repro_torch import kernels as K
+    from repro_torch.kernels import (build, fused_adamw,  # noqa: F401
+                                     fused_momentum, fused_sgd, ref, sq_norm)
+    if not K.__file__.startswith(src):
+        fail(f"repro_torch was not imported from {src}")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+        check=True).stdout.strip().splitlines()[0]
+    build.load_all()
+
+    def emit(**rec):
+        print(json.dumps(dict(tag=tag, card=card, **rec)), flush=True)
+
+    emit(kernel="wrapper parts", host_us=wrapper_parts(torch, K, build))
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p, g = (torch.randn(MAIN, generator=gen, device=dev) for _ in range(2))
+    m = torch.randn(MAIN, generator=gen, device=dev) * 0.1
+    v = (torch.randn(MAIN, generator=gen, device=dev) * 0.01).abs_()
+    step = torch.tensor(1000.0, device=dev)
+    got = p.clone()
+    K.fused_sgd.fused_sgd(got, g, lr=0.05, impl="cuda")
+    if not torch.equal(got, ref.sgd_ref(p, g, lr=0.05)):
+        fail("fused_sgd differs from sgd_ref at MAIN")
+    s1 = K.sq_norm.sq_norm_groups(p, impl="cuda")
+    compare("sq_norm_groups at MAIN", s1, ref.sq_norm_groups_ref(p),
+            rtol=NORM_RTOL, atol=0.0)
+    if not torch.equal(s1, K.sq_norm.sq_norm_groups(p, impl="cuda")):
+        fail("sq_norm_groups: two runs differ")
+    del got
+    timed = {
+        "fused_sgd": (lambda: K.fused_sgd.fused_sgd(p, g, lr=1e-4),
+                      lambda: p.add_(g, alpha=-1e-4)),
+        "sq_norm_groups": (lambda: K.sq_norm.sq_norm_groups(p),
+                           lambda: torch.linalg.vector_norm(p, dim=1)),
+        "fused_momentum": (
+            lambda: K.fused_momentum.fused_momentum(p, g, m, lr=1e-4,
+                                                    beta=0.9),
+            lambda: torch._fused_sgd_(
+                [p], [g], [m], weight_decay=0.0, momentum=0.9, lr=1e-4,
+                dampening=0.0, nesterov=False, maximize=False,
+                is_first_step=False)),
+        "fused_adamw": (
+            lambda: K.fused_adamw.fused_adamw(p, g, m, v, step, lr=1e-4,
+                                              wd=0.01),
+            lambda: torch._fused_adamw_(
+                [p], [g], [m], [v], [], [step], lr=1e-4, beta1=0.9,
+                beta2=0.999, weight_decay=0.01, eps=1e-8, amsgrad=False,
+                maximize=False)),
+    }
+    for name, (kern, lib) in timed.items():
+        emit(kernel=name, shape=list(MAIN), bound_ms=bound(name, MAIN)[0],
+             **call_and_device_ms(torch, kern, lib))
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1683,6 +1952,8 @@ def main() -> int:
         print("chip_smoke: src/repro_torch not found; run from the root of "
               "a checkout of the repository", file=sys.stderr)
         return 1
+    if "--time-calls" in sys.argv:
+        return time_calls(sys.argv)
     sys.path.insert(0, SRC)
     from repro_torch import kernels as K
     # the wrapper modules, reached below as attributes of K
@@ -1720,6 +1991,7 @@ def main() -> int:
 
     results = check_kernels(torch, K, ref)
     check_exchange_kernels(torch, exchange_epilogue, results)
+    check_exchange_coverage(torch, exchange_epilogue, results)
     reference_check(torch)
     for c in K.quantize.launches:
         K.quantize.launches[c] = 0

@@ -22,7 +22,9 @@ def resolve_impl(impl: str, device: torch.device) -> str:
     """``"cuda"`` (launch the kernel) or ``"torch"`` (plain version)."""
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r} (have {IMPLS})")
-    on_cuda = torch.device(device).type == "cuda"
+    if not isinstance(device, torch.device):
+        device = torch.device(device)
+    on_cuda = device.type == "cuda"
     if impl == "auto":
         return "cuda" if on_cuda else "torch"
     if impl == "cuda" and not on_cuda:
@@ -39,24 +41,32 @@ def check_rows(name: str, *tensors: torch.Tensor) -> tuple:
     16-byte vectors from the same element offsets of every buffer).
     Returns (G, N)."""
     x = tensors[0]
-    if x.dim() != 2:
-        raise ValueError(
-            f"{name}: expected (G, N) buffers, got {tuple(x.shape)}")
+    shape, device = x.shape, x.device
+    if len(shape) != 2:
+        raise ValueError(f"{name}: expected (G, N) buffers, got {tuple(shape)}")
     for t in tensors:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: expected float32, got {t.dtype}")
-        if t.shape != x.shape:
+        if t.dtype is not torch.float32 or t.shape != shape or \
+                not t.is_contiguous() or (t is not x and t.device != device):
+            _bad_buffer(name, t, shape, device)
+    if len(tensors) > 1 and device.type == "cuda":
+        grain = x.data_ptr() % 16
+        if any(t.data_ptr() % 16 != grain for t in tensors):
             raise ValueError(
-                f"{name}: shape {tuple(t.shape)} != {tuple(x.shape)}")
-        if t.device != x.device:
-            raise ValueError(f"{name}: tensors on {t.device} and {x.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: buffers must be contiguous")
-    if x.is_cuda and len({t.data_ptr() % 16 for t in tensors}) != 1:
-        raise ValueError(f"{name}: buffers must share one 16-byte alignment")
-    if x.shape[0] > MAX_ROWS:
+                f"{name}: buffers must share one 16-byte alignment")
+    if shape[0] > MAX_ROWS:
         raise ValueError(f"{name}: at most {MAX_ROWS} rows (one grid row each)")
-    return x.shape[0], x.shape[1]
+    return shape[0], shape[1]
+
+
+def _bad_buffer(name, t, shape, device):
+    """Raise for a buffer ``check_rows`` refuses, saying why."""
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: expected float32, got {t.dtype}")
+    if t.shape != shape:
+        raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
+    if t.device != device:
+        raise ValueError(f"{name}: tensors on {t.device} and {device}")
+    raise ValueError(f"{name}: buffers must be contiguous")
 
 
 def check_buffer(name: str, t, shape, device, dtype=torch.float32) -> None:
@@ -72,13 +82,13 @@ def check_buffer(name: str, t, shape, device, dtype=torch.float32) -> None:
         raise ValueError(f"{name}: buffers must be contiguous")
 
 
-def check_active(name: str, active, rows: int, device) -> None:
+def check_active(name: str, active, rows: int, device: torch.device) -> None:
     if active is None:
         return
     if active.dtype != torch.bool or active.shape != (rows,):
         raise ValueError(f"{name}: active must be a ({rows},) bool tensor, "
                          f"got {active.dtype} {tuple(active.shape)}")
-    if active.device != torch.device(device) or not active.is_contiguous():
+    if active.device != device or not active.is_contiguous():
         raise ValueError(f"{name}: active must be contiguous on {device}")
 
 
@@ -96,7 +106,7 @@ def ptr(t) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
+def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
@@ -105,16 +115,18 @@ def blocks_per_row(x: torch.Tensor, per_sm: int = 8) -> int:
     blocks over all rows to keep ``per_sm`` blocks resident on every SM,
     and never more than one float4 per thread."""
     rows, n = x.shape
-    want = -(-_sm_count(x.device.index) * per_sm // max(rows, 1))
+    want = -(-sm_count(x.device.index) * per_sm // max(rows, 1))
     return max(1, min(want, -(-n // (4 * 256))))
 
 
 def grid_blocks(device: torch.device, units: int) -> int:
     """Blocks of a grid-stride launch over ``units`` pieces of work: 8
     resident on every SM, at most one per unit."""
-    return max(1, min(units, _sm_count(device.index) * 8))
+    return max(1, min(units, sm_count(device.index) * 8))
 
 
 def stream_of(x: torch.Tensor) -> int:
-    """Handle of the current stream on ``x``'s device, for a launcher."""
-    return torch.cuda.current_stream(x.device).cuda_stream
+    """Handle of the current stream on ``x``'s device, for a launcher
+    (``torch._C._cuda_getCurrentRawStream``, the handle alone, which
+    ``torch.cuda.current_stream`` wraps in a Stream object first)."""
+    return torch._C._cuda_getCurrentRawStream(x.device.index)

@@ -33,8 +33,8 @@ _P, _I64, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
 # c_void_p (a plain int would be cut to 32 bits), sizes c_int64.
 SIGNATURES = {
     "fused_update": {
-        # p, g, active, rows, n, blocks, stream, lr
-        "repro_fused_sgd": (_P, _P, _P, _I64, _I64, _I64, _P, _F),
+        # p, g, active, rows, n, stream, lr
+        "repro_fused_sgd": (_P, _P, _P, _I64, _I64, _P, _F),
         # p, g, mu, active, rows, n, blocks, stream, lr, beta
         "repro_fused_momentum": (_P, _P, _P, _P, _I64, _I64, _I64, _P,
                                  _F, _F),
@@ -48,8 +48,8 @@ SIGNATURES = {
         # blocks, stream
         "repro_codec_mix": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
                             _I64, _I64, _I64, _P),
-        # x, u, out, rows, blocks, stream
-        "repro_qdq_int8": (_P, _P, _P, _I64, _I64, _P),
+        # x, u, out, rows, chunk, blocks, stream
+        "repro_qdq_int8": (_P, _P, _P, _I64, _I64, _I64, _P),
     },
     "decode_attention": {
         # q, pool, rows_k, rows_v, lengths, out, B, n_kv, g, hd, page_size,
@@ -64,8 +64,8 @@ SIGNATURES = {
                                   _I64, _I64, _P, _F),
     },
     "sq_norm": {
-        # x, partials, out, rows, n, blocks, stream
-        "repro_sq_norm_groups": (_P, _P, _P, _I64, _I64, _I64, _P),
+        # x, partials, tickets, out, rows, n, capacity, stream
+        "repro_sq_norm_groups": (_P, _P, _P, _P, _I64, _I64, _I64, _P),
     },
     "rmsnorm": {
         # x, w, out, rows, d, bf16, tpr, nv, threads, stream, eps
@@ -88,6 +88,7 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _libs: dict = {}
+_bound: dict = {}     # (stem, name) -> launcher, bound at first use
 
 
 def nvcc() -> str:
@@ -154,12 +155,26 @@ def load_all() -> dict:
                     fn = getattr(lib, name)
                     fn.argtypes = argtypes
                     fn.restype = ctypes.c_int
+                    fn.errcheck = _raise_on_error
                 _libs[stem] = lib
         return _libs
 
 
+def _raise_on_error(err, fn, _args):
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} failed to launch: cudaError_t {err}")
+
+
+def launcher(stem: str, name: str):
+    """The ctypes function of one launcher, which raises if it reports a
+    CUDA error. Bound once (the libraries are built and loaded at the
+    first call); later calls are one dict lookup."""
+    fn = _bound.get((stem, name))
+    if fn is None:
+        fn = _bound[stem, name] = getattr(load_all()[stem], name)
+    return fn
+
+
 def launch(stem: str, name: str, *args) -> None:
     """Call one launcher; raise if it reports a CUDA error."""
-    err = getattr(load_all()[stem], name)(*args)
-    if err != 0:
-        raise RuntimeError(f"{name} failed to launch: cudaError_t {err}")
+    launcher(stem, name)(*args)

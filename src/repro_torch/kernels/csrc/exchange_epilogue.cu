@@ -10,9 +10,10 @@
 //              gossip: each hop re-encodes y - ref against the last
 //              decoded payload); kind thresh is top-k's select + mean +
 //              error-feedback residual once the per-row threshold is known
-//   qdq_int8   per-row int8 quantize + dequantize of (rows, 256) with the
-//              noise passed in: the staged codec core (int8z, async_stale,
-//              the downlink codec)
+//   qdq_int8   per-row int8 quantize + dequantize of (rows, chunk) with
+//              the noise passed in: the staged codec core (int8z,
+//              async_stale, the downlink codec, and every int8 stream the
+//              fused kernel does not take: G > 16, a chunk other than 256)
 //
 // Bound on an H100: HBM bytes. codec_mix reads x, x0 and (int8) one noise
 // float per hop, writes the mix: 16 bytes per element for int8 on the
@@ -38,10 +39,15 @@
 // known at compile time. The noise is the staged path's (hops, G*nchunks,
 // 256) rows, so the result equals the staged codec's.
 //
-// Layout of qdq_int8: one warp per row of 256, two float4 per lane, the
-// row max by warp shuffles; grid-stride over rows on gridDim.x, so there
-// is no limit on the row count (paper-lenet's 1,947,852 rows). Both
-// kernels launch at most one wave of resident blocks.
+// Layout of qdq_int8: one warp per row; grid-stride over rows on
+// gridDim.x, so there is no limit on the row count (paper-lenet's
+// 1,947,852 rows). A row of 256 is two float4 per lane, held in registers
+// between the row max (warp shuffles) and the write. Any other chunk
+// takes the row's max in a first pass and reads it again (from L1) with
+// its noise, float4 by float4 where the chunk is a multiple of 4 and the
+// buffers are 16-byte aligned, else element by element, as
+// csrc/quantize.cu does. Both kernels launch at most one wave of resident
+// blocks.
 //
 // Rounding: each operation is one IEEE round-to-nearest step written as
 // an intrinsic (__fdiv_rn for amax/127 and x/scale, never a reciprocal;
@@ -273,6 +279,48 @@ qdq_int8_rows(const float* __restrict__ x, const float* __restrict__ u,
   }
 }
 
+// Any chunk: the row max in a first pass, then the row again with its
+// noise. VEC: float4 steps (chunk % 4 == 0, 16-byte aligned buffers).
+template <bool VEC>
+__global__ void __launch_bounds__(256)
+qdq_int8_any(const float* __restrict__ x, const float* __restrict__ u,
+             float* __restrict__ out, int64_t rows, int64_t chunk) {
+  const int lane = threadIdx.x & 31;
+  const int64_t per_block = blockDim.x >> 5;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * per_block;
+  for (int64_t r = blockIdx.x * per_block + (threadIdx.x >> 5); r < rows; r += stride) {
+    const float* xr = x + r * chunk;
+    const float* ur = u + r * chunk;
+    float* orow = out + r * chunk;
+    float m = 0.0f;
+    if (VEC) {
+      for (int64_t k = 4 * lane; k < chunk; k += 128) {
+        const float4 a = *reinterpret_cast<const float4*>(xr + k);
+        m = fmaxf(m, fmaxf(fmaxf(fabsf(a.x), fabsf(a.y)), fmaxf(fabsf(a.z), fabsf(a.w))));
+      }
+    } else {
+      for (int64_t k = lane; k < chunk; k += 32) m = fmaxf(m, fabsf(xr[k]));
+    }
+    m = warp_max(m);
+    const float scale = m > 0.0f ? __fdiv_rn(m, 127.0f) : 1.0f;
+    if (VEC) {
+      for (int64_t k = 4 * lane; k < chunk; k += 128) {
+        float4 a = *reinterpret_cast<const float4*>(xr + k);
+        const float4 b = *reinterpret_cast<const float4*>(ur + k);
+        a.x = qdq(a.x, b.x, scale);
+        a.y = qdq(a.y, b.y, scale);
+        a.z = qdq(a.z, b.z, scale);
+        a.w = qdq(a.w, b.w, scale);
+        *reinterpret_cast<float4*>(orow + k) = a;
+      }
+    } else {
+      for (int64_t k = lane; k < chunk; k += 32) orow[k] = qdq(xr[k], ur[k], scale);
+    }
+  }
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
 }  // namespace
 
 // w_host: (g, g) float32 in host memory, copied into the kernel's
@@ -308,11 +356,21 @@ extern "C" int repro_codec_mix(const float* x, const float* x0, const float* u,
   return launch_kind<16>(a, k, mean, blocks, s);
 }
 
-// x, u, out: (rows, 256) float32, each 16-byte aligned.
+// x, u, out: (rows, chunk) float32. blocks: the grid, 8 rows a block.
 extern "C" int repro_qdq_int8(const float* x, const float* u, float* out,
-                              int64_t rows, int64_t blocks, void* stream) {
-  if (rows <= 0) return 0;
-  qdq_int8_rows<<<resident_grid(qdq_int8_rows, 256, blocks), 256, 0,
-                  static_cast<cudaStream_t>(stream)>>>(x, u, out, rows);
+                              int64_t rows, int64_t chunk, int64_t blocks,
+                              void* stream) {
+  if (rows <= 0 || chunk <= 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec = aligned16(x) && aligned16(u) && aligned16(out);
+  if (chunk == kChunk && vec) {
+    qdq_int8_rows<<<resident_grid(qdq_int8_rows, 256, blocks), 256, 0, s>>>(x, u, out, rows);
+  } else if (chunk % 4 == 0 && vec) {
+    qdq_int8_any<true><<<resident_grid(qdq_int8_any<true>, 256, blocks), 256, 0, s>>>(
+        x, u, out, rows, chunk);
+  } else {
+    qdq_int8_any<false><<<resident_grid(qdq_int8_any<false>, 256, blocks), 256, 0, s>>>(
+        x, u, out, rows, chunk);
+  }
   return static_cast<int>(cudaGetLastError());
 }

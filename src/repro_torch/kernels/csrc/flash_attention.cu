@@ -60,6 +60,14 @@
 // the diagonal tile and the one holding S's end are masked (-1e30, as the
 // reference); the final division clamps l at 1e-30.
 //
+// Head dims: the kernel is instantiated at hd 8, 16, 32, 64, 112 (zamba2-7b's
+// 3584/32) and 128; kernels/flash_attention.py zero-pads every other hd up
+// to 128 to the next of these widths (exact: zero columns of Q and K add
+// nothing to Q K^T, V's zero columns are cut from the output, and the scale
+// comes from the true hd). At 112 the P @ V loop takes 7 output blocks at
+// once (a divisor of hd/8 = 14) and the shared-memory rows are padded to
+// the bank pattern of the power-of-two widths.
+//
 // Schedule: block x of the grid's x axis takes query tiles nq - 1 - x and
 // x, one after the other, so every block does nq + 1 key tiles (the middle
 // tile alone where nq is odd); kernels/flash_attention.py tile_schedule
@@ -183,6 +191,21 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;" ::: "memory");
 }
 
+// A row of hd elements padded by `pad`; a width that is no power of two is
+// padded further, to the same remainder modulo `period` elements (32 banks
+// of 4 bytes) as the power-of-two widths' rows.
+__host__ __device__ constexpr int row_stride(int hd, int pad, int period) {
+  return (hd & (hd - 1)) == 0 ? hd + pad : hd + ((pad - hd % period) % period + period) % period;
+}
+
+// The number of 8-wide output blocks P @ V takes at once: the largest
+// divisor of hd/8 up to 8.
+__host__ __device__ constexpr int pv_group(int blocks) {
+  int g = blocks < 8 ? blocks : 8;
+  while (blocks % g != 0) --g;
+  return g;
+}
+
 // Shared memory of one block: Q (float), then two stages of K and of V
 // in the input type. Rows are padded so that a warp's fragment reads hit
 // distinct banks: K's 8-byte reads of 8 keys x 4 dim pairs, V's reads of
@@ -190,9 +213,10 @@ __device__ __forceinline__ void cp_async_wait_all() {
 template <typename T, int HD>
 struct Smem {
   static constexpr bool kExact = sizeof(T) == 2;         // bfloat16: lo = 0
-  static constexpr int kQS = HD + 8;                     // Q row, floats
-  static constexpr int kKS = HD + 8;                     // K row, elements
-  static constexpr int kVS = HD + (sizeof(T) == 4 ? 4 : 8);
+  static constexpr int kPeriod = 128 / static_cast<int>(sizeof(T));  // 32 banks
+  static constexpr int kQS = row_stride(HD, 8, 32);      // Q row, floats
+  static constexpr int kKS = row_stride(HD, 8, kPeriod);  // K row, elements
+  static constexpr int kVS = row_stride(HD, sizeof(T) == 4 ? 4 : 8, kPeriod);
   static constexpr int kQFloats = kRowsQ * kQS;
   static constexpr int kKElems = kTile * kKS, kVElems = kTile * kVS;
   static constexpr int kBytes =
@@ -308,7 +332,7 @@ __device__ __forceinline__ void tile_step(const float* qs, const T* ks, const T*
 
   // acc (16 x hd) += P (16 x 64) V (64 x hd): k steps of 8 keys, keys
   // (2t, 2t+1) as k (t, t + 4) in both operands; G output blocks at once
-  constexpr int G = HD / 8 < 8 ? HD / 8 : 8;
+  constexpr int G = pv_group(HD / 8);
   constexpr int KP = kSteps;
 #pragma unroll
   for (int j = 0; j < 8; j += KP) {
@@ -458,6 +482,7 @@ int launch_hd(const void* q, const void* k, const void* v, void* out, int64_t B,
     case 16: return launch<T, 16>(q, k, v, out, B, H, KV, S, s, scale);
     case 32: return launch<T, 32>(q, k, v, out, B, H, KV, S, s, scale);
     case 64: return launch<T, 64>(q, k, v, out, B, H, KV, S, s, scale);
+    case 112: return launch<T, 112>(q, k, v, out, B, H, KV, S, s, scale);
     case 128: return launch<T, 128>(q, k, v, out, B, H, KV, S, s, scale);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -467,7 +492,8 @@ int launch_hd(const void* q, const void* k, const void* v, void* out, int64_t B,
 
 // q, out: (B, H, S, hd); k, v: (B, KV, S, hd); all contiguous and 16-byte
 // aligned, float32 (bf16 = 0) or bfloat16 (bf16 = 1); hd in {8, 16, 32,
-// 64, 128}; B * H <= 65535; scale: 1/sqrt(hd) as the caller rounded it.
+// 64, 112, 128}; B * H <= 65535; scale: 1/sqrt of the true hd (before any
+// zero padding) as the caller rounded it.
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v,
                                      void* out, int64_t B, int64_t H, int64_t KV,
                                      int64_t S, int64_t hd, int64_t bf16, void* stream,

@@ -6,7 +6,9 @@ pages of the serve pool (``serve/paging.py``): q (B, H, hd) against pool
 rows ``rows_k[b, j]`` / ``rows_v[b, j]``, masked at each slot's length.
 On a CUDA tensor it launches ``repro_paged_decode_attention``
 (``csrc/decode_attention.cu``); on a CPU tensor it takes
-``ref.paged_decode_attention_ref``.
+``ref.paged_decode_attention_ref``. The kernel takes any head dim up to
+``MAX_HEAD_DIM`` and from 1 to ``MAX_GROUP`` query heads per KV head
+(``takes``).
 """
 from __future__ import annotations
 
@@ -19,8 +21,14 @@ from repro_torch.kernels.ref import paged_decode_attention_ref
 
 launches = 0     # kernel launches since the count was last set to 0
 DTYPES = (torch.float32, torch.bfloat16)
-HEAD_DIMS = (8, 16, 32, 64, 128)     # the kernel's instantiations
-GROUPS = (1, 2, 4, 8)                # query heads per KV head
+MAX_HEAD_DIM = 128
+MAX_GROUP = 16                       # query heads per KV head
+
+
+def takes(hd: int, g: int) -> bool:
+    """Whether the kernel takes head dim ``hd`` with ``g`` query heads per
+    KV head."""
+    return 1 <= hd <= MAX_HEAD_DIM and 1 <= g <= MAX_GROUP
 
 
 def _check(q, pool, rows_k, rows_v, lengths, page_size, n_kv):
@@ -60,11 +68,12 @@ def paged_decode_attention(q, pool, rows_k, rows_v, lengths, *,
         return paged_decode_attention_ref(q, pool, rows_k, rows_v, lengths,
                                           page_size=page_size, n_kv=n_kv,
                                           scale=scale)
-    if B > 65535 or hd not in HEAD_DIMS or H // n_kv not in GROUPS:
+    if B > 65535 or not takes(hd, H // n_kv):
         raise ValueError(
             f"paged_decode_attention: the kernel takes at most 65535 slots, "
-            f"head_dim in {HEAD_DIMS} and {GROUPS} query heads per KV head; "
-            f"got B {B}, head_dim {hd}, {H // n_kv}")
+            f"head_dim up to {MAX_HEAD_DIM} and 1 to {MAX_GROUP} query heads "
+            f"per KV head; got B {B}, head_dim {hd}, {H // n_kv} (ROADMAP.md "
+            "Queue C: wider heads stay refused on the card)")
     # the kernel computes in float32: a bfloat16 query is widened (exact)
     # and the result rounded back, as the kernel's store would
     qf = q.to(torch.float32).contiguous()

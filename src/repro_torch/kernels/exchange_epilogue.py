@@ -6,13 +6,15 @@ over the (G, N) buffer: encode and decode of the round delta (int8,
 bf16, fp16), the exact G-mean or ``hops`` hops of a (G, G) W with a
 re-encode per hop, or top-k's threshold selection with its
 error-feedback residual (``thresh``, mean only). ``qdq_int8`` is the
-staged int8 codec's quantize+dequantize on (rows, 256).
+staged int8 codec's quantize+dequantize on (rows, chunk), any chunk.
 
 On a CUDA tensor each launches its kernel of ``csrc/exchange_epilogue.cu``
-(``codec_mix`` takes at most ``MAX_G`` groups and the int8 chunk 256;
-``qdq_int8`` rows of 256) or raises; on a CPU tensor it takes
-``ref.codec_mix_ref`` / ``ref.qdq_int8_ref``. The kernels are written to
-round like the plain versions, so the two agree bit for bit.
+or raises: ``codec_mix`` takes at most ``MAX_G`` groups and the int8
+chunk 256 (``codec_mix_takes``; the exchange routes every other stream to
+the staged codecs, as the reference's ``_fusable`` routes by shape). On a
+CPU tensor each takes ``ref.codec_mix_ref`` / ``ref.qdq_int8_ref``. The
+kernels are written to round like the plain versions, so the two agree
+bit for bit.
 """
 from __future__ import annotations
 
@@ -25,10 +27,16 @@ from repro_torch.kernels.ref import codec_mix_ref, qdq_int8_ref
 
 KINDS = ("int8", "bf16", "fp16", "thresh")
 MAX_G = 16        # the kernel keeps all G rows of a column in registers
-CHUNK = 256       # the int8 chunk the kernels take (one block width)
+CHUNK = 256       # codec_mix's int8 chunk (one block width)
 
 # kernel launches since a count was last set to 0
 launches = {"codec_mix": 0, "qdq_int8": 0}
+
+
+def codec_mix_takes(g: int, kind: str, chunk: int = CHUNK) -> bool:
+    """Whether the ``codec_mix`` kernel takes a stream of ``g`` groups
+    through ``kind`` (int8 with its ``chunk``)."""
+    return g <= MAX_G and (kind != "int8" or chunk == CHUNK)
 
 
 def qdq_int8(rows, u, *, impl="auto"):
@@ -41,16 +49,10 @@ def qdq_int8(rows, u, *, impl="auto"):
     check_buffer("qdq_int8", u, rows.shape, rows.device)
     if resolve_impl(impl, rows.device) == "torch":
         return qdq_int8_ref(rows, u)
-    if rows.shape[1] != CHUNK:
-        raise ValueError(f"qdq_int8: the kernel takes rows of {CHUNK}, got "
-                         f"{rows.shape[1]}")
-    if rows.data_ptr() % 16 or u.data_ptr() % 16:
-        raise ValueError("qdq_int8: the kernel reads float4: buffers must "
-                         "be 16-byte aligned")
     out = torch.empty_like(rows)
-    n_rows = rows.shape[0]
+    n_rows, chunk = rows.shape
     build.launch("exchange_epilogue", "repro_qdq_int8", rows.data_ptr(),
-                 u.data_ptr(), out.data_ptr(), n_rows,
+                 u.data_ptr(), out.data_ptr(), n_rows, chunk,
                  grid_blocks(rows.device, -(-n_rows // 8)), stream_of(rows))
     launches["qdq_int8"] += 1
     return out
@@ -103,12 +105,11 @@ def codec_mix(x, x0, *, kind, u=None, w=None, hops=1, chunk=0,
         if residual_out is not None and res is not None:
             res = residual_out.copy_(res)
         return mixed, res
-    if g > MAX_G:
+    if not codec_mix_takes(g, kind, chunk):
         raise ValueError(f"codec_mix: the kernel takes at most {MAX_G} "
-                         f"groups, got {g}")
-    if kind == "int8" and chunk != CHUNK:
-        raise ValueError(f"codec_mix: the kernel takes the int8 chunk "
-                         f"{CHUNK}, got {chunk}")
+                         f"groups and the int8 chunk {CHUNK}, got {g} "
+                         f"groups, {kind} chunk {chunk}; the exchange "
+                         "routes such a stream to the staged codecs")
     if out is None:
         out = torch.empty_like(x)
     if kind == "thresh" and residual_out is None:

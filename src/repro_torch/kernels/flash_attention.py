@@ -8,6 +8,12 @@ heads first. On a CUDA tensor it launches ``repro_flash_attention``
 within the float32 tolerance); on a CPU tensor it takes
 ``ref.flash_attention_ref``. Neither package has a backward for it, so
 an input that requires a gradient is refused.
+
+The kernel is instantiated at the head dims ``KERNEL_HEAD_DIMS``; any
+other hd up to ``MAX_HEAD_DIM`` is zero-padded to the next of them
+(``pad_head_dim``), which is exact: zero columns of q and k add nothing
+to q k^T, v's zero columns are cut from the output, and the scores keep
+the scale 1/sqrt(hd) of the true hd. ``takes(hd)`` is the admitted set.
 """
 from __future__ import annotations
 
@@ -19,8 +25,24 @@ from repro_torch.kernels import build, resolve_impl, stream_of
 from repro_torch.kernels.ref import flash_attention_ref
 
 launches = 0     # kernel launches since the count was last set to 0
-HEAD_DIMS = (8, 16, 32, 64, 128)
+KERNEL_HEAD_DIMS = (8, 16, 32, 64, 112, 128)    # the kernel's instantiations
+MAX_HEAD_DIM = 128
 TILE = 64        # query rows of a tile (the kernel's kRowsQ)
+
+
+def takes(hd: int) -> bool:
+    """Whether the kernel takes head dim ``hd`` (padded where needed)."""
+    return 1 <= hd <= MAX_HEAD_DIM
+
+
+def kernel_width(hd: int) -> int:
+    """The instantiated head dim that ``hd`` runs at: the least one >= hd."""
+    return next(w for w in KERNEL_HEAD_DIMS if w >= hd)
+
+
+def pad_head_dim(t, width: int):
+    """``t`` (..., hd) with zero columns appended up to ``width``."""
+    return torch.nn.functional.pad(t, (0, width - t.shape[-1]))
 
 
 def tile_schedule(S: int) -> list:
@@ -63,18 +85,24 @@ def flash_attention(q, k, v, *, block_q: int = 128, block_k: int = 128,
             "attn_impl='blocked'")
     if resolve_impl(impl, q.device) == "torch":
         return flash_attention_ref(q, k, v, causal=True)
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
+    if not takes(hd):
+        raise ValueError(
+            f"flash_attention: the kernel takes head_dim up to "
+            f"{MAX_HEAD_DIM}, got {hd} (ROADMAP.md Queue C: wider heads "
+            "stay refused on the card)")
     if B * H > 65535:
         raise ValueError("flash_attention: at most 65535 (batch, head) pairs")
+    width = kernel_width(hd)
+    if width != hd:
+        q, k, v = (pad_head_dim(t, width) for t in (q, k, v))
     q, k, v = (_aligned(t) for t in (q, k, v))
     out = torch.empty_like(q)
     build.launch("flash_attention", "repro_flash_attention", q.data_ptr(),
-                 k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, KV, S, hd,
-                 int(q.dtype == torch.bfloat16), stream_of(q),
+                 k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, KV, S,
+                 width, int(q.dtype == torch.bfloat16), stream_of(q),
                  1.0 / math.sqrt(hd))
     launches += 1
-    return out
+    return out if width == hd else out[..., :hd].contiguous()
 
 
 def _aligned(t):

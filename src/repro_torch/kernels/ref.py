@@ -132,18 +132,19 @@ def codec_mix_ref(x, x0, *, kind, u=None, w=None, hops=1, chunk=0,
 NEG_INF = -1e30
 
 
-def flash_attention_ref(q, k, v, causal=True):
+def flash_attention_ref(q, k, v, causal=True, hd=None):
     """q (B,H,S,hd), k/v (B,KV,S,hd) with KV dividing H -> (B,H,S,hd):
     plain softmax attention. The KV heads are repeated to H, as the
     reference's caller does before its kernel; the probabilities are cast
     to q's type before the product with v, as the reference's oracle
-    does."""
-    B, H, S, hd = q.shape
+    does. ``hd``: the head dim whose root scales the scores (default the
+    inputs' own; the true one for zero-padded inputs)."""
+    B, H, S, width = q.shape
     if k.shape[1] != H:
         k = k.repeat_interleave(H // k.shape[1], dim=1)
         v = v.repeat_interleave(H // v.shape[1], dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", q, k).to(torch.float32)
-    s = s / torch.sqrt(s.new_tensor(float(hd)))
+    s = s / torch.sqrt(s.new_tensor(float(hd or width)))
     if causal:
         mask = torch.tril(torch.ones((S, S), dtype=torch.bool,
                                      device=q.device))

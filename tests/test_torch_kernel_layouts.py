@@ -1,15 +1,22 @@
-"""The Python side of two kernels' work split, which the CPU can check
+"""The Python side of four kernels' work split, which the CPU can check
 though it cannot run the kernels: ``rmsnorm.layout`` (which threads of
-``csrc/rmsnorm.cu`` take which row and which 16-byte vectors of it) and
+``csrc/rmsnorm.cu`` take which row and which 16-byte vectors of it),
 ``flash_attention.tile_schedule`` (which query tiles each block of
-``csrc/flash_attention.cu`` takes). The assignments below repeat the
-kernels' index arithmetic; each must reach every row and column, or
-every (query tile, head), exactly once."""
+``csrc/flash_attention.cu`` takes), ``fused_sgd.schedule`` (which strips
+of the active rows each block of ``sgd_strips`` in
+``csrc/fused_update.cu`` updates) and ``sq_norm.schedule`` /
+``sq_norm.finish_sum`` (which strips each block of a row of
+``csrc/sq_norm.cu`` sums, and the order in which the row's last block
+sums the partials). The assignments repeat the kernels' index
+arithmetic; each must reach every row and column, or every (query tile,
+head), exactly once, and no inactive row."""
 import numpy as np
 import pytest
 
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import fused_sgd as fs
 from repro_torch.kernels import rmsnorm as rn
+from repro_torch.kernels import sq_norm as sn
 
 # chip_smoke.py RMS_FULL, RMS_WIDE and RMS_EDGE (rows flattened), and
 # ragged widths
@@ -101,3 +108,82 @@ def test_flash_schedule_visits_each_tile_once(S):
     assert all(w == nq + 1 for w in work[:nq // 2])
     if nq % 2:
         assert work[-1] == nq // 2 + 1    # the middle tile alone
+
+
+# ragged widths (shorter than a float4, a strip and a bit, several
+# strips plus a tail) and the active masks of 1 to 4 rows of 4
+SGD_WIDTHS = [1, 3, 5, 4099, 3 * 4 * fs.STRIP + 7]
+SGD_MASKS = [None, (1, 0, 0, 0), (0, 0, 1, 0), (0, 1, 1, 0), (1, 1, 0, 1),
+             (0, 0, 0, 0)]
+
+
+@pytest.mark.parametrize("n", SGD_WIDTHS)
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("active", SGD_MASKS)
+def test_sgd_schedule_updates_each_active_element_once(n, offset, active):
+    rows = 4
+    want = np.zeros((rows, n), np.int64)
+    for r in range(rows):
+        want[r] = active is None or active[r]
+    kernel_grid = rows * max(1, -(-(n // 4) // fs.STRIP))   # one a strip
+    for grid in (1, 3, 1056, kernel_grid):
+        sched = fs.schedule(rows, n, active, grid, offset)
+        assert len(sched) == grid
+        hits = np.zeros((rows, n), np.int64)
+        for blk in sched:
+            # the block's cursor over the rows only moves forward
+            seen = [r for r, _, _ in blk]
+            assert seen == sorted(seen)
+            for r, first, last in blk:
+                hits[r, first:last] += 1
+        np.testing.assert_array_equal(hits, want)
+
+
+def test_sgd_schedule_spreads_one_active_row_over_every_block():
+    """A step of the per-group T_i schedule with one row of four active:
+    its strips fill the whole grid, where one grid row a buffer row left
+    three quarters of it idle."""
+    n, grid = 64 * 4 * fs.STRIP, 16
+    sched = fs.schedule(4, n, (0, 0, 1, 0), grid)
+    work = [sum(last - first for _, first, last in blk) for blk in sched]
+    assert min(work) == max(work) == n // grid
+
+
+@pytest.mark.parametrize("n", [1, 3, 4099, 3 * 4 * sn.STRIP + 7, 40_000])
+@pytest.mark.parametrize("start", [0, 1, 2, 3])
+@pytest.mark.parametrize("bpr", [1, 2, 7])
+def test_sq_norm_schedule_sums_each_element_once(n, start, bpr):
+    hits = np.zeros(n, np.int64)
+    for blk in sn.schedule(n, bpr, start):
+        for first, last in blk:
+            hits[first:last] += 1
+    np.testing.assert_array_equal(hits, 1)
+
+
+@pytest.mark.parametrize("bpr", [1, 5, 256, 300, 1056])
+def test_sq_norm_finish_takes_each_partial_once_in_a_fixed_order(bpr):
+    """The row's last block sums the partials in one order whichever
+    block draws the last ticket: each partial enters once (one-hot
+    partials sum to 1), and the sum is a function of the partials alone,
+    within float32 rounding of the exact sum."""
+    for i in sorted({0, bpr // 2, bpr - 1}):
+        onehot = np.zeros(bpr, np.float32)
+        onehot[i] = 1.0
+        assert sn.finish_sum(onehot) == 1.0
+    parts = np.random.default_rng(bpr).random(bpr).astype(np.float32)
+    got = sn.finish_sum(parts)
+    assert got.dtype == np.float32 and got == sn.finish_sum(parts.copy())
+    np.testing.assert_allclose(got, parts.astype(np.float64).sum(),
+                               rtol=1e-6)
+
+
+def test_sq_norm_blocks_per_row():
+    """The resident blocks (132 SMs x 8) shared over the rows, clamped to
+    the strips of a row and to the scratch."""
+    n = 124_662_528                   # paper-lenet's packed buffer
+    assert sn.blocks_per_row(4, n, 1056, 1056) == 264
+    assert sn.blocks_per_row(1, n, 1056, 1056) == 1056
+    assert sn.blocks_per_row(2000, n, 1056, 2000) == 1
+    assert sn.blocks_per_row(4, 4099, 1056, 1056) == 1
+    assert sn.blocks_per_row(4, 3 * 4 * sn.STRIP + 7, 1056, 1056) == 4
+    assert sn.blocks_per_row(4, 3, 1056, 1056) == 1
