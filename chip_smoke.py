@@ -22,19 +22,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    The exchange kernels must equal their plain versions bit for bit:
    ``codec_mix`` in every kind, on the mean and with the ring and gossip
    W at hops 1 and 2, at (4, 124,662,528), (8, 62,331,264), (3,
-   1,000,003) and tiny ragged shapes up to G = 16; ``qdq_int8`` at
+   1,000,003) and tiny ragged shapes up to G = 16, and through its
+   general kernel (more than 16 groups, or an int8 chunk other than 256)
+   at (32, 15,582,816), int8 chunks 128 and 512 at (4, 124,662,528) and
+   small ragged shapes (G 17-40, chunks 37-1024); ``qdq_int8`` at
    (1,947,852, 256), on ragged row counts with all-zero chunks, and
    through int8z's pinned noise, and at chunks 128, 512 and 37. The
-   exchanges the fused kernel does not take (G 32: int8 on server and
-   ring, top-k, fp16, bf16; int8 chunks 128 and 512) run staged on the
-   card, with no ``codec_mix`` launch, bit-equal to the same exchange
-   with the plain versions. Each kernel is timed with CUDA events
-   (median of 20 launches after warm-up) beside its bound, its plain
-   version and one PyTorch library call that computes the same function
-   (a yardstick the port never calls; none exists for the exchange
-   kernels); for the update and norm kernels and their library calls the
-   device's time is logged beside the call's, and the host's time of each
-   part of the ``fused_sgd`` and ``sq_norm_groups`` wrappers;
+   exchanges past the register kernel (G 32: int8 on server and ring,
+   top-k, fp16, bf16; int8 chunks 128 and 512) each launch ``codec_mix``
+   once and equal the same exchange with the plain versions bit for bit.
+   Each kernel is timed with CUDA events (median of 20 launches after
+   warm-up) beside its bound, its plain version and one PyTorch library
+   call that computes the same function (a yardstick the port never
+   calls; none exists for the exchange kernels); for the update and norm
+   kernels and their library calls the device's time is logged beside
+   the call's, and ``fused_sgd`` is timed with one active row of four
+   beside ``add_`` on that row;
 4. a small reference check: the packed round on a paper-mlp reduction,
    on the card with the kernels and on the CPU with the plain versions,
    from the same params and batches: fp32 momentum and adamw, and the
@@ -142,12 +145,6 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``sq_norm`` is its one-row case; the exchange kernels, which ``ops``
    does not front, not at all).
 
-``python3 chip_smoke.py --time-calls [--src DIR] [--tag NAME]`` runs
-none of the phases: it times the update and norm kernels of the tree
-under ``DIR`` (default this checkout's ``src``) beside their library
-calls, on both yardsticks, and their wrappers' parts, one JSON line each
-(``time_calls``), so that two trees are compared on one card in turns.
-
 The line before the last is one JSON object with each kernel's numbers
 (the launches of phases 5 and 8 for the first eight, of phase 10's
 ``ops`` path for the last four); the last line is ``{"ok": true,
@@ -216,6 +213,12 @@ PER_ELEMENT = {"fused_sgd": (12, 2), "fused_momentum": (20, 4),
                "fused_adamw": (28, 16), "sq_norm_groups": (4, 2),
                "codec_mix": (16, 12), "qdq_int8": (12, 8)}
 SPLIT = (8, 62_331_264)          # the same element count over G = 8
+WIDE = (32, 15_582_816)          # and over G = 32: codec_mix's general kernel
+# codec_mix past its register kernel: G 17-40 (every kind), and (shape,
+# int8 chunk) for the chunks other than 256
+WIDE_G = (WIDE, (17, 100_003), (40, 4099), (33, 257))
+WIDE_CHUNK = ((MAIN, 128), (MAIN, 512), ((5, 100_003), 37),
+              ((3, 4099), 1024), ((20, 10_007), 128))
 QDQ_ROWS = (1_947_852, 256)      # MAIN's int8 rows
 TINY_G = ((1, 1), (2, 3), (16, 700), (5, 4099), (7, 257))
 
@@ -403,10 +406,25 @@ def check_kernels(torch, K, ref):
                     f"{r['library_ms']:.4f} (device "
                     f"{t['library_device_ms']:.4f}) max_abs_err "
                     f"{r['max_abs_err']:.3e}")
+            # a step of the per-group T_i schedule: one active row of four
+            only = torch.zeros(rows, dtype=torch.bool, device=dev)
+            only[off] = True
+            t = call_and_device_ms(
+                torch,
+                lambda: K.fused_sgd.fused_sgd(p, g, lr=1e-4, active=only,
+                                              impl="cuda"),
+                lambda: p[off].add_(g[off], alpha=-1e-4))
+            every = torch.ones(rows, dtype=torch.bool, device=dev)
+            masked = time_ms(lambda: K.fused_sgd.fused_sgd(
+                p, g, lr=1e-4, active=every, impl="cuda"), torch,
+                device_only=True)
+            log(f"fused_sgd one active row of {rows} kernel_ms "
+                f"{t['ms']:.4f} (device {t['device_ms']:.4f}) bound_ms "
+                f"{bound('fused_sgd', (1, shape[1]))[0]:.4f} library_ms "
+                f"(add_ on the row) {t['library_ms']:.4f} (device "
+                f"{t['library_device_ms']:.4f}); every row by an all-true "
+                f"mask: device {masked:.4f}")
             _sq_norm_launches(torch, K, p)
-            log("wrapper host us per call, (4, 4096): " + ", ".join(
-                f"{k} {v:.2f}" for k, v in wrapper_parts(
-                    torch, K, K.build).items()))
         del p, g, m, v
         torch.cuda.empty_cache()
     return results
@@ -465,7 +483,13 @@ def check_exchange_kernels(torch, ee, results):
             fail(f"{what}: kernel differs from the plain version "
                  f"(max abs err {err:.3e})")
 
-    for shape in (MAIN, SPLIT, RAGGED) + TINY_G:
+    # the register kernel (G <= 16, the int8 chunk 256), then the general
+    # one: more than 16 groups in every kind, other int8 chunks
+    cases = ([(shape, 256, ee.KINDS) for shape in (MAIN, SPLIT, RAGGED)
+              + TINY_G]
+             + [(shape, 256, ee.KINDS) for shape in WIDE_G]
+             + [(shape, chunk, ("int8",)) for shape, chunk in WIDE_CHUNK])
+    for shape, chunk, kinds in cases:
         g, n = shape
         x0 = torch.randn(shape, generator=gen, device=dev)
         x = x0 + 0.01 * torch.randn(shape, generator=gen, device=dev)
@@ -474,32 +498,40 @@ def check_exchange_kernels(torch, ee, results):
         tau = torch.topk(c, max(1, round(0.05 * n)), dim=-1,
                          sorted=False).values.amin(-1, keepdim=True)
         del c
-        u2 = torch.rand((2, g * -(-n // 256), 256), generator=gen,
+        u2 = torch.rand((2, g * -(-n // chunk), chunk), generator=gen,
                         device=dev)
         mixes = [("mean", None, 1)] + [
             (f"{t} hops {h}", topology.mixing_matrix(t, g, seed=0), h)
             for t in ("ring", "gossip") for h in (1, 2)]
-        for kind in ee.KINDS:
+        for kind in kinds:
             for label, w, hops in mixes:
                 if kind == "thresh" and w is not None:
                     continue
                 kw = dict(kind=kind, w=w, hops=hops)
                 if kind == "int8":
-                    kw.update(chunk=256, u=u2[:hops if w is not None else 1])
+                    kw.update(chunk=chunk,
+                              u=u2[:hops if w is not None else 1])
                 if kind == "thresh":
                     kw.update(residual=res, tau=tau)
+                before = ee.launches["codec_mix"]
                 got, got_res = ee.codec_mix(x, x0, impl="cuda", **kw)
                 want, want_res = ee.codec_mix(x, x0, impl="torch", **kw)
-                what = f"codec_mix {kind} {label} {shape}"
+                what = f"codec_mix {kind} {label} {shape} chunk {chunk}"
+                if ee.launches["codec_mix"] != before + 1:
+                    fail(f"{what}: the kernel was not launched once")
                 same(what, "codec_mix", got, want)
                 if kind == "thresh":
                     same(what + " residual", "codec_mix", got_res, want_res)
                 del got, want, got_res, want_res
         # in place, as the exchange calls it
-        want, _ = ee.codec_mix(x, x0, kind="bf16", impl="torch")
-        ee.codec_mix(x, x0, kind="bf16", out=x, impl="cuda")
-        same(f"codec_mix bf16 in place {shape}", "codec_mix", x, want)
-        log(f"codec_mix equals its plain version at {shape}")
+        kw = (dict(kind="bf16") if "bf16" in kinds else
+              dict(kind="int8", u=u2[:1], chunk=chunk))
+        want, _ = ee.codec_mix(x, x0, impl="torch", **kw)
+        ee.codec_mix(x, x0, out=x, impl="cuda", **kw)
+        same(f"codec_mix {kw['kind']} in place {shape} chunk {chunk}",
+             "codec_mix", x, want)
+        log(f"codec_mix equals its plain version at {shape}, "
+            f"{'/'.join(kinds)} chunk {chunk}")
         del x, x0, res, u2, want
         torch.cuda.empty_cache()
 
@@ -563,10 +595,37 @@ def check_exchange_kernels(torch, ee, results):
     del x, x0, res, out, res_out, u2
     torch.cuda.empty_cache()
 
+    # the general kernel: G 32 over MAIN's element count, and MAIN at the
+    # int8 chunk 128 (a W hop: the G-term contraction and the codec)
+    for shape, chunk in ((WIDE, 256), (MAIN, 128)):
+        g, n = shape
+        x0 = torch.randn(shape, generator=gen, device=dev)
+        x = x0 + 0.01 * torch.randn(shape, generator=gen, device=dev)
+        out = torch.empty_like(x)
+        u2 = torch.rand((2, g * -(-n // chunk), chunk), generator=gen,
+                        device=dev)
+        cases = {"int8 mean": (dict(kind="int8", u=u2[:1], chunk=chunk),
+                               16, 12)}
+        if chunk == 256:
+            cases["bf16 mean"] = (dict(kind="bf16"), 12, 6)
+            cases["int8 ring hops 2"] = (
+                dict(kind="int8", u=u2, chunk=chunk,
+                     w=topology.ring_matrix(g), hops=2),
+                20, 2 * (2 * g + 12))
+        for label, (kw, nbytes, ops) in cases.items():
+            ms = time_ms(lambda: ee.codec_mix(x, x0, out=out, impl="cuda",
+                                              **kw), torch)
+            bms, by = bound_of(nbytes * g * n, ops * g * n)
+            log(f"codec_mix {label:16s} {shape} chunk {chunk} (general "
+                f"kernel) kernel_ms {ms:.4f} bound_ms {bms:.4f} ({by}, "
+                f"{nbytes} B/element)")
+        del x, x0, out, u2
+        torch.cuda.empty_cache()
 
-# Exchanges the fused kernel does not take, which take the staged codecs
-# on the card (topology, codec, G, int8 chunk), at N = COVER_N: G 32 as a
-# 32-worker run would send them, and int8 chunks other than 256
+
+# Exchanges past codec_mix's register kernel, which run its general one
+# (topology, codec, G, int8 chunk), at N = COVER_N: G 32 as a 32-worker
+# run would send them, and int8 chunks other than 256
 COVER_N = 100_003
 COVER = [("server", "int8", 32, 256), ("ring", "int8", 32, 256),
          ("server", "topk", 32, 256), ("server", "fp16", 32, 256),
@@ -577,10 +636,9 @@ COVER = [("server", "int8", 32, 256), ("ring", "int8", 32, 256),
 def check_exchange_coverage(torch, ee, results):
     """Phase 3: the staged int8 core ``qdq_int8`` at chunks 128, 512 and
     37, bit-equal to its plain version; then each ``COVER`` exchange on
-    the card, with the codecs' kernels and with their plain versions,
-    from the same inputs and noise: equal bits, no ``codec_mix`` launch
-    (the exchange routes these streams to the staged codecs) and one
-    ``qdq_int8`` launch per int8 hop."""
+    the card, with the kernels and with their plain versions, from the
+    same inputs and noise: equal bits, and one ``codec_mix`` launch (the
+    exchange fuses these streams, as the reference does)."""
     from repro_torch.comm import exchange
 
     dev = torch.device("cuda")
@@ -607,9 +665,7 @@ def check_exchange_coverage(torch, ee, results):
                                    {"params": x0.clone()},
                                    ex.init(x0.clone()))
             got = {k: v - before[k] for k, v in ee.launches.items()}
-            want = {"codec_mix": 0,
-                    "qdq_int8": hops if codec == "int8" and impl == "auto"
-                    else 0}
+            want = {"codec_mix": 1 if impl == "auto" else 0, "qdq_int8": 0}
             if got != want:
                 fail(f"exchange {topo} {codec} G {g} chunk {chunk} "
                      f"impl={impl}: launches {got}, expected {want}")
@@ -620,10 +676,9 @@ def check_exchange_coverage(torch, ee, results):
         if not torch.equal(out["auto"], out["torch"]):
             fail(f"{what}: the card's kernels differ from the plain versions "
                  f"(max abs err {err:.3e})")
-        if codec == "int8":
-            results["qdq_int8"]["max_abs_err"] = max(
-                results["qdq_int8"]["max_abs_err"], err)
-        log(f"{what}: staged on the card (launches {launched}), equal to "
+        results["codec_mix"]["max_abs_err"] = max(
+            results["codec_mix"]["max_abs_err"], err)
+        log(f"{what}: fused on the card (launches {launched}), equal to "
             "the plain versions")
         del x0, x, out
     torch.cuda.empty_cache()
@@ -1813,135 +1868,6 @@ def _kernel_name(mangled):
                    else "")
 
 
-def _host_us(fn, reps):
-    """Mean host microseconds of one call of ``fn`` over ``reps`` calls (a
-    warm-up first), the queue drained before and after."""
-    import torch
-    for _ in range(50):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    us = (time.perf_counter() - t0) / reps * 1e6
-    torch.cuda.synchronize()
-    return us
-
-
-def wrapper_parts(torch, K, build, reps=5000):
-    """Host microseconds per call of each part of the ``fused_sgd`` and
-    ``sq_norm_groups`` wrappers, of whichever tree ``K`` comes from, and
-    of the whole calls at a tiny (4, 4096) beside their library calls,
-    where the host's time is the call's. A part the tree does not have is
-    absent. ``ctypes`` calls the launcher with zero sizes: the argument
-    conversion and the call, no launch."""
-    import ctypes
-    dev = torch.device("cuda")
-    p = torch.randn((4, 4096), device=dev)
-    g = torch.randn((4, 4096), device=dev)
-    mask = torch.ones(4, dtype=torch.bool, device=dev)
-    lookup = getattr(build, "launcher", None)
-    if lookup is None:
-        def lookup(stem, name):
-            return getattr(build.load_all()[stem], name)
-    fn = lookup("fused_update", "repro_fused_sgd")
-    zeros = [0.0 if t is ctypes.c_float else 0
-             for t in build.SIGNATURES["fused_update"]["repro_fused_sgd"]]
-    parts = {
-        "check_rows": lambda: K.check_rows("fused_sgd", p, g),
-        "check_active": lambda: K.check_active("fused_sgd", mask, 4,
-                                               p.device),
-        "resolve_impl": lambda: K.resolve_impl("auto", p.device),
-        "blocks_per_row": (lambda: K.blocks_per_row(p))
-        if hasattr(K, "blocks_per_row") else None,
-        "stream_of": lambda: K.stream_of(p),
-        "launcher lookup": lambda: lookup("fused_update", "repro_fused_sgd"),
-        "ctypes": lambda: fn(*zeros),
-        "torch.empty (4,)": lambda: torch.empty((4,), device=dev),
-        "fused_sgd call": lambda: K.fused_sgd.fused_sgd(p, g, lr=0.0),
-        "p.add_ call": lambda: p.add_(g, alpha=-0.0),
-        "sq_norm_groups call": lambda: K.sq_norm.sq_norm_groups(p),
-        "vector_norm call": lambda: torch.linalg.vector_norm(p, dim=1),
-    }
-    out = {k: _host_us(f, reps) for k, f in parts.items() if f is not None}
-    # the device's time of the tiny calls, to tell the host's time apart
-    for k, f in (("fused_sgd device", parts["fused_sgd call"]),
-                 ("sq_norm_groups device", parts["sq_norm_groups call"])):
-        out[k] = time_ms(f, torch, device_only=True) * 1e3
-    return out
-
-
-def time_calls(args) -> int:
-    """``--time-calls [--src DIR] [--tag NAME]``: the update and norm
-    kernels of the tree under ``DIR`` (default this checkout's ``src``),
-    each against its plain version at MAIN (``fused_sgd`` bit-equal) and
-    timed beside its library call on both yardsticks
-    (``call_and_device_ms``), and its wrapper's parts
-    (``wrapper_parts``). One JSON line per result, with the card's name
-    and power limit, so that two trees are compared on one card in turns
-    (parent, change, change, parent), one process each."""
-    import torch
-    src = os.path.abspath(args[args.index("--src") + 1]
-                          if "--src" in args else SRC)
-    tag = args[args.index("--tag") + 1] if "--tag" in args else ""
-    sys.path.insert(0, src)
-    from repro_torch import kernels as K
-    from repro_torch.kernels import (build, fused_adamw,  # noqa: F401
-                                     fused_momentum, fused_sgd, ref, sq_norm)
-    if not K.__file__.startswith(src):
-        fail(f"repro_torch was not imported from {src}")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-        check=True).stdout.strip().splitlines()[0]
-    build.load_all()
-
-    def emit(**rec):
-        print(json.dumps(dict(tag=tag, card=card, **rec)), flush=True)
-
-    emit(kernel="wrapper parts", host_us=wrapper_parts(torch, K, build))
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(0)
-    p, g = (torch.randn(MAIN, generator=gen, device=dev) for _ in range(2))
-    m = torch.randn(MAIN, generator=gen, device=dev) * 0.1
-    v = (torch.randn(MAIN, generator=gen, device=dev) * 0.01).abs_()
-    step = torch.tensor(1000.0, device=dev)
-    got = p.clone()
-    K.fused_sgd.fused_sgd(got, g, lr=0.05, impl="cuda")
-    if not torch.equal(got, ref.sgd_ref(p, g, lr=0.05)):
-        fail("fused_sgd differs from sgd_ref at MAIN")
-    s1 = K.sq_norm.sq_norm_groups(p, impl="cuda")
-    compare("sq_norm_groups at MAIN", s1, ref.sq_norm_groups_ref(p),
-            rtol=NORM_RTOL, atol=0.0)
-    if not torch.equal(s1, K.sq_norm.sq_norm_groups(p, impl="cuda")):
-        fail("sq_norm_groups: two runs differ")
-    del got
-    timed = {
-        "fused_sgd": (lambda: K.fused_sgd.fused_sgd(p, g, lr=1e-4),
-                      lambda: p.add_(g, alpha=-1e-4)),
-        "sq_norm_groups": (lambda: K.sq_norm.sq_norm_groups(p),
-                           lambda: torch.linalg.vector_norm(p, dim=1)),
-        "fused_momentum": (
-            lambda: K.fused_momentum.fused_momentum(p, g, m, lr=1e-4,
-                                                    beta=0.9),
-            lambda: torch._fused_sgd_(
-                [p], [g], [m], weight_decay=0.0, momentum=0.9, lr=1e-4,
-                dampening=0.0, nesterov=False, maximize=False,
-                is_first_step=False)),
-        "fused_adamw": (
-            lambda: K.fused_adamw.fused_adamw(p, g, m, v, step, lr=1e-4,
-                                              wd=0.01),
-            lambda: torch._fused_adamw_(
-                [p], [g], [m], [v], [], [step], lr=1e-4, beta1=0.9,
-                beta2=0.999, weight_decay=0.01, eps=1e-8, amsgrad=False,
-                maximize=False)),
-    }
-    for name, (kern, lib) in timed.items():
-        emit(kernel=name, shape=list(MAIN), bound_ms=bound(name, MAIN)[0],
-             **call_and_device_ms(torch, kern, lib))
-    return 0
-
-
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1952,8 +1878,6 @@ def main() -> int:
         print("chip_smoke: src/repro_torch not found; run from the root of "
               "a checkout of the repository", file=sys.stderr)
         return 1
-    if "--time-calls" in sys.argv:
-        return time_calls(sys.argv)
     sys.path.insert(0, SRC)
     from repro_torch import kernels as K
     # the wrapper modules, reached below as attributes of K

@@ -71,19 +71,20 @@ def fp32() -> Codec:
                  identity=True)
 
 
-def _cast_codec(name: str, dtype) -> Codec:
+def _cast_codec(name: str, dtype, impl: str) -> Codec:
     def compress(delta, state):
         return delta.to(dtype).to(delta.dtype), state
 
-    return Codec(name, compress, lambda n: 2 * n, _no_state)
+    # impl reaches the fused exchange's codec_mix
+    return Codec(name, compress, lambda n: 2 * n, _no_state, impl=impl)
 
 
-def fp16() -> Codec:
-    return _cast_codec("fp16", torch.float16)
+def fp16(*, impl: str = "auto") -> Codec:
+    return _cast_codec("fp16", torch.float16, impl)
 
 
-def bf16() -> Codec:
-    return _cast_codec("bf16", torch.bfloat16)
+def bf16(*, impl: str = "auto") -> Codec:
+    return _cast_codec("bf16", torch.bfloat16, impl)
 
 
 def generator_seed(seed: int, count: int) -> int:
@@ -201,9 +202,9 @@ def get_codec(name: str, *, impl: str = "auto", chunk: int = 256,
     if name == "fp32":
         return fp32()
     if name == "fp16":
-        return fp16()
+        return fp16(impl=impl)
     if name == "bf16":
-        return bf16()
+        return bf16(impl=impl)
     if name == "int8":
         return int8(chunk=chunk, seed=seed, impl=impl, noise_fn=noise_fn)
     if name == "int8z":

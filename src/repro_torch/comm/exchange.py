@@ -23,10 +23,7 @@ Routing, as in the reference (``_fusable``): int8, fp16 and bf16 on
 server, ring and gossip, and top-k on server, run the fused ``codec_mix``
 kernel (``kernels/exchange_epilogue.py``); int8z, async_stale, top-k on
 ring/gossip and the downlink take the staged codecs (int8's core is the
-``qdq_int8`` kernel). On a CUDA buffer a stream the kernel does not take
-(more than ``MAX_G`` groups, an int8 chunk other than 256:
-``codec_mix_takes``) takes the staged codecs too, which take any G and
-chunk; the wire bytes are the same either way.
+``qdq_int8`` kernel).
 
 The exchange works in place where it can: an fp32 stream and a fused
 stream are mixed into the live (G, N) buffer, whose memory the round
@@ -45,7 +42,7 @@ import torch
 from repro_torch.comm import codecs as codecs_mod
 from repro_torch.comm import faults as faults_mod
 from repro_torch.comm import topology as topo_mod
-from repro_torch.kernels.exchange_epilogue import codec_mix, codec_mix_takes
+from repro_torch.kernels.exchange_epilogue import codec_mix
 
 TOPOLOGIES = ("server", "ring", "gossip", "async_stale", "push_sum",
               "none", "hierarchical")
@@ -202,22 +199,17 @@ class Exchange:
             y = _tensordot_w(w, ref)
         return y, cstate
 
-    def _fusable(self, codec, g: int, device) -> bool:
+    def _fusable(self, codec) -> bool:
         """Streams the fused codec_mix epilogue covers: a width codec on
         server, ring or gossip, or top-k on server (ring/gossip re-select
         per hop and stay staged). async keeps the staged path (the
-        staleness mask interleaves). On a CUDA device, only the ``g``
-        groups and int8 chunk the kernel takes (``codec_mix_takes``)."""
+        staleness mask interleaves)."""
         if not self.fused:
             return False
         if codec.topk_frac > 0:
-            fits, kind = self.topology == "server", "thresh"
-        else:
-            fits, kind = (codec.name in ("int8", "fp16", "bf16")
-                          and self.topology in ("server", "ring", "gossip"),
-                          codec.name)
-        return fits and (torch.device(device).type != "cuda"
-                         or codec_mix_takes(g, kind, codec.chunk))
+            return self.topology == "server"
+        return (codec.name in ("int8", "fp16", "bf16")
+                and self.topology in ("server", "ring", "gossip"))
 
     def _fused_stream(self, codec, x, x0, cstate):
         """One stream through codec_mix, mixed into ``x`` in place. The
@@ -267,7 +259,7 @@ class Exchange:
                 # "none" skips the codec too: nothing goes on the wire
                 x_hat[name] = x
                 continue
-            if self._fusable(codec, x.shape[0], x.device):
+            if self._fusable(codec):
                 mixed[name], cs = self._fused_stream(
                     codec, x, xs0[name], cstates.get(name, {}))
             elif self.w is not None:

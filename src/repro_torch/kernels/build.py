@@ -48,6 +48,10 @@ SIGNATURES = {
         # blocks, stream
         "repro_codec_mix": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
                             _I64, _I64, _I64, _P),
+        # x, x0, u, res, tau, out, res_out, w (device), ws, g, n, chunk,
+        # hops, kind, blocks, stream
+        "repro_codec_mix_wide": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
+                                 _I64, _I64, _I64, _I64, _I64, _P),
         # x, u, out, rows, chunk, blocks, stream
         "repro_qdq_int8": (_P, _P, _P, _I64, _I64, _I64, _P),
     },

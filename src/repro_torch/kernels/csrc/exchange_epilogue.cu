@@ -12,8 +12,7 @@
 //              error-feedback residual once the per-row threshold is known
 //   qdq_int8   per-row int8 quantize + dequantize of (rows, chunk) with
 //              the noise passed in: the staged codec core (int8z,
-//              async_stale, the downlink codec, and every int8 stream the
-//              fused kernel does not take: G > 16, a chunk other than 256)
+//              async_stale, the downlink codec)
 //
 // Bound on an H100: HBM bytes. codec_mix reads x, x0 and (int8) one noise
 // float per hop, writes the mix: 16 bytes per element for int8 on the
@@ -38,6 +37,20 @@
 // kernel's parameters at a fixed row stride, so every index into it is
 // known at compile time. The noise is the staged path's (hops, G*nchunks,
 // 256) rows, so the result equals the staged codec's.
+//
+// Any other stream (G > 16, or an int8 chunk other than 256) takes
+// codec_mix_wide: a block of 256 threads owns one window of columns (the
+// int8 chunk, any width, else 256) across all G rows, and thread t the
+// window's columns t, t + 256, ...; the rows are walked one at a time, so
+// G has no limit. On the mean a row is added into a running column sum as
+// soon as it is decoded (the sum runs over g = 0..G-1 in order, as on the
+// fast path); with a W each column's y and ref of every row live in the
+// block's slice of a global scratch (2 * G * window floats, L2-resident),
+// where the W contraction reads them. int8 takes the row's window max in a
+// first pass and reads the window again to quantize it. Only the max is
+// shared between threads; every other value of a column is read and
+// written by the thread that owns it, so the mix may again be written
+// over x in place. W comes as a device pointer.
 //
 // Layout of qdq_int8: one warp per row; grid-stride over rows on
 // gridDim.x, so there is no limit on the row count (paper-lenet's
@@ -100,6 +113,27 @@ __device__ __forceinline__ void load_noise(const float* u, int64_t nchunks, int 
   const float* uh = u + (static_cast<int64_t>(h) * G * nchunks + c) * kChunk + t;
 #pragma unroll
   for (int g = 0; g < MAXG; ++g) un[g] = g < G ? uh[g * nchunks * kChunk] : 0.0f;
+}
+
+// Max of one float a thread over the block; every thread gets it.
+__device__ __forceinline__ float block_max(float m) {
+  __shared__ float red[kWarps];
+  m = warp_max(m);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = m;
+  __syncthreads();
+  m = red[0];
+#pragma unroll
+  for (int k = 1; k < kWarps; ++k) m = fmaxf(m, red[k]);
+  __syncthreads();  // red is rewritten by the next call
+  return m;
+}
+
+// One decoded delta of a width codec (int8 with its scale and noise).
+template <int KIND>
+__device__ __forceinline__ float decoded(float d, float u, float scale) {
+  if (KIND == kInt8) return qdq(d, u, scale);
+  if (KIND == kBf16) return __bfloat162float(__float2bfloat16_rn(d));
+  return __half2float(__float2half_rn(d));
 }
 
 template <int MAXG, int KIND, bool MEAN>
@@ -207,6 +241,120 @@ __global__ void __launch_bounds__(kChunk) codec_mix_kernel(const MixArgs a) {
   }
 }
 
+struct WideArgs {
+  const float* x;
+  const float* x0;
+  const float* u;    // (hops, g * nwin, win), int8 only
+  const float* res;  // (g, n), thresh only
+  const float* tau;  // (g,), thresh only
+  const float* w;    // (g, g) on the device; unused on the mean
+  float* out;        // may be x
+  float* res_out;    // may be res
+  float* ws;         // per block: win floats (mean) or 2 * g * win (W)
+  int64_t n, win, nwin;
+  int g, hops;
+};
+
+// The window's int8 scale of row g: the max of |y - ref| over the window
+// (columns past n count as 0), from every thread's columns.
+template <class Delta>
+__device__ __forceinline__ float window_scale(int64_t win, Delta delta) {
+  float m = 0.0f;
+  for (int64_t j = threadIdx.x; j < win; j += kChunk) m = fmaxf(m, fabsf(delta(j)));
+  m = block_max(m);
+  return m > 0.0f ? __fdiv_rn(m, 127.0f) : 1.0f;
+}
+
+// The mean (server): every kind, top-k's thresh included.
+template <int KIND>
+__global__ void __launch_bounds__(kChunk) codec_mean_wide(const WideArgs a) {
+  const int64_t win = a.win, n = a.n;
+  float* acc = a.ws + static_cast<int64_t>(blockIdx.x) * win;  // the running column sums
+  for (int64_t c = blockIdx.x; c < a.nwin; c += gridDim.x) {
+    const int64_t col0 = c * win;
+    for (int g = 0; g < a.g; ++g) {
+      const float* xg = a.x + g * n + col0;
+      const float* x0g = a.x0 + g * n + col0;
+      const int64_t len = n - col0 < win ? n - col0 : win;  // valid columns
+      float scale = 1.0f;
+      if (KIND == kInt8) {
+        scale = window_scale(win, [&](int64_t j) {
+          return j < len ? __fsub_rn(xg[j], x0g[j]) : 0.0f;
+        });
+      }
+      const float* ug = KIND == kInt8 ? a.u + (g * a.nwin + c) * win : nullptr;
+      for (int64_t j = threadIdx.x; j < win; j += kChunk) {
+        const bool valid = j < len;
+        const float xv = valid ? xg[j] : 0.0f, x0v = valid ? x0g[j] : 0.0f;
+        float r;
+        if (KIND == kThresh) {
+          const int64_t i = g * n + col0 + j;
+          const float cg = __fadd_rn(__fsub_rn(xv, x0v), valid ? a.res[i] : 0.0f);
+          const float ac = fabsf(cg);
+          const float dh = (ac >= a.tau[g] && ac > 0.0f) ? cg : 0.0f;
+          if (valid) a.res_out[i] = __fsub_rn(cg, dh);
+          r = __fadd_rn(x0v, dh);
+        } else {
+          r = __fadd_rn(x0v, decoded<KIND>(__fsub_rn(xv, x0v),
+                                            KIND == kInt8 ? ug[j] : 0.0f, scale));
+        }
+        acc[j] = g == 0 ? r : __fadd_rn(acc[j], r);
+      }
+    }
+    for (int64_t j = threadIdx.x; j < win && col0 + j < n; j += kChunk) {
+      const float s = __fdiv_rn(acc[j], static_cast<float>(a.g));
+      for (int g = 0; g < a.g; ++g) a.out[g * n + col0 + j] = s;
+    }
+  }
+}
+
+// hops hops of W (ring, gossip): int8, bf16, fp16.
+template <int KIND>
+__global__ void __launch_bounds__(kChunk) codec_w_wide(const WideArgs a) {
+  const int G = a.g;
+  const int64_t win = a.win, n = a.n;
+  float* ys = a.ws + static_cast<int64_t>(blockIdx.x) * 2 * G * win;  // y[g][j], then ref[g][j]
+  float* rs = ys + G * win;
+  for (int64_t c = blockIdx.x; c < a.nwin; c += gridDim.x) {
+    const int64_t col0 = c * win;
+    const int64_t len = n - col0 < win ? n - col0 : win;
+    for (int g = 0; g < G; ++g) {
+      for (int64_t j = threadIdx.x; j < win; j += kChunk) {
+        const bool valid = j < len;
+        ys[g * win + j] = valid ? a.x[g * n + col0 + j] : 0.0f;
+        rs[g * win + j] = valid ? a.x0[g * n + col0 + j] : 0.0f;
+      }
+    }
+    for (int h = 0; h < a.hops; ++h) {
+      for (int g = 0; g < G; ++g) {
+        float* yg = ys + g * win;
+        float* rg = rs + g * win;
+        float scale = 1.0f;
+        if (KIND == kInt8) {
+          scale = window_scale(win, [&](int64_t j) { return __fsub_rn(yg[j], rg[j]); });
+        }
+        const float* ug =
+            KIND == kInt8 ? a.u + ((static_cast<int64_t>(h) * G + g) * a.nwin + c) * win : nullptr;
+        for (int64_t j = threadIdx.x; j < win; j += kChunk) {
+          rg[j] = __fadd_rn(rg[j], decoded<KIND>(__fsub_rn(yg[j], rg[j]),
+                                                  KIND == kInt8 ? ug[j] : 0.0f, scale));
+        }
+      }
+      for (int i = 0; i < G; ++i) {
+        const float* wi = a.w + static_cast<int64_t>(i) * G;
+        for (int64_t j = threadIdx.x; j < win; j += kChunk) {
+          float acc = __fmul_rn(wi[0], rs[j]);
+          for (int k = 1; k < G; ++k) acc = __fadd_rn(acc, __fmul_rn(wi[k], rs[k * win + j]));
+          ys[i * win + j] = acc;
+        }
+      }
+    }
+    for (int g = 0; g < G; ++g) {
+      for (int64_t j = threadIdx.x; j < len; j += kChunk) a.out[g * n + col0 + j] = ys[g * win + j];
+    }
+  }
+}
+
 // The grid of a grid-stride kernel: at most the blocks that fit on the
 // card at once. More would run as a second, partial wave that leaves SMs
 // idle at the end (the caller's count assumes 8 blocks per SM; a kernel
@@ -248,6 +396,12 @@ int launch_kind(const MixArgs& a, int kind, bool mean, int64_t blocks, cudaStrea
                   : static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <class Kernel>
+int launch_wide(Kernel kernel, const WideArgs& a, int64_t blocks, cudaStream_t s) {
+  kernel<<<resident_grid(kernel, kChunk, blocks), kChunk, 0, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 __global__ void __launch_bounds__(256)
@@ -354,6 +508,52 @@ extern "C" int repro_codec_mix(const float* x, const float* x0, const float* u,
   if (g <= 4) return launch_kind<4>(a, k, mean, blocks, s);
   if (g <= 8) return launch_kind<8>(a, k, mean, blocks, s);
   return launch_kind<16>(a, k, mean, blocks, s);
+}
+
+// Any g and int8 chunk (codec_mix_wide). w: (g, g) float32 on the device,
+// NULL for the mean; ws: scratch of blocks * win floats (mean) or blocks *
+// 2 * g * win (W), win = chunk for int8, else 256; u: (hops, g * nwin, win).
+extern "C" int repro_codec_mix_wide(const float* x, const float* x0, const float* u,
+                                    const float* res, const float* tau, float* out,
+                                    float* res_out, const float* w, float* ws, int64_t g,
+                                    int64_t n, int64_t chunk, int64_t hops, int64_t kind,
+                                    int64_t blocks, void* stream) {
+  const bool mean = w == nullptr;
+  if (g < 1 || hops < 1 || (kind == kInt8 && chunk < 1) || (kind == kThresh && !mean)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n <= 0) return 0;
+  WideArgs a;
+  memset(&a, 0, sizeof(a));
+  a.x = x;
+  a.x0 = x0;
+  a.u = u;
+  a.res = res;
+  a.tau = tau;
+  a.w = w;
+  a.out = out;
+  a.res_out = res_out;
+  a.ws = ws;
+  a.n = n;
+  a.win = kind == kInt8 ? chunk : kChunk;
+  a.nwin = (n + a.win - 1) / a.win;
+  a.g = static_cast<int>(g);
+  a.hops = mean ? 1 : static_cast<int>(hops);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (kind) {
+    case kInt8:
+      return mean ? launch_wide(codec_mean_wide<kInt8>, a, blocks, s)
+                  : launch_wide(codec_w_wide<kInt8>, a, blocks, s);
+    case kBf16:
+      return mean ? launch_wide(codec_mean_wide<kBf16>, a, blocks, s)
+                  : launch_wide(codec_w_wide<kBf16>, a, blocks, s);
+    case kFp16:
+      return mean ? launch_wide(codec_mean_wide<kFp16>, a, blocks, s)
+                  : launch_wide(codec_w_wide<kFp16>, a, blocks, s);
+    case kThresh:
+      return launch_wide(codec_mean_wide<kThresh>, a, blocks, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // x, u, out: (rows, chunk) float32. blocks: the grid, 8 rows a block.

@@ -16,19 +16,22 @@
 // Design of fused_sgd (redesigned for the H100): flattened over the active
 // rows only. Each row's float4 body is cut into strips of kStrip float4s
 // (one a thread of a 128-thread block) and the strips of the active rows
-// are numbered in row order; block b takes strip b (and b + grid, ...
-// past CUDA's grid limit) and maps it through a prefix count of the
-// active mask, which every block reads on the device (a count at the
-// start, then a cursor that walks the rows once), so the host never reads
-// the mask, the active rows' strips fill the first blocks, and a step of
-// the per-group T_i schedule with one active row still spreads over every
-// SM. The first strip of a row also takes its ragged head and tail.
+// are numbered in row order; block b takes strips b, b + grid, ... and
+// maps each through a prefix count of the active mask, which every block
+// reads on the device (a count at the start, then a cursor that walks the
+// rows once), so the host never reads the mask. The grid: with no mask,
+// one block a strip of every row; with a mask (a step of the per-group
+// T_i schedule), one row's strips, so block b takes strip b of each active
+// row in turn, and one active row of four still spreads over every SM
+// (the first grid left 3/4 of its blocks to exit at once, and took twice
+// p.add_'s time on that row; an all-true mask costs 1% over no mask).
+// The first strip of a row also takes its ragged head and tail.
 // Measured on the H100 against the alternatives (PERF.md): a
 // resident grid that walks the strips (with 1-4 float4 loads of p and g in
 // flight a thread) was 6-8% slower than one strip a block, streaming
 // (evict-first) loads and stores 2% slower than the default policy, and a
 // TMA bulk-copy pipeline through shared memory 5% slower; two float4 a
-// thread gained nothing over one. kernels/fused_sgd.py schedule mirrors
+// thread gained nothing over one. tests/test_torch_kernel_layouts.py mirrors
 // this split.
 //
 // Design of momentum and adamw: each byte moves once. One block row per
@@ -232,9 +235,9 @@ int launch(const Op& op, const uint8_t* active, int64_t rows, int64_t n,
 extern "C" int repro_fused_sgd(float* p, const float* g, const uint8_t* active,
                                int64_t rows, int64_t n, void* stream, float lr) {
   if (rows <= 0 || n <= 0) return 0;
-  // one block a strip of every row; the blocks past the active rows'
-  // strips exit at once
-  const int64_t work = rows * strips_per_row(n);
+  // no mask: one block a strip of every row; a mask: one row's strips,
+  // each block walking the active rows
+  const int64_t work = (active == nullptr ? rows : 1) * strips_per_row(n);
   sgd_strips<<<static_cast<unsigned>(work < kMaxGrid ? work : kMaxGrid), kSgdThreads, 0,
                static_cast<cudaStream_t>(stream)>>>(p, g, active, rows, n, lr);
   return static_cast<int>(cudaGetLastError());

@@ -23,7 +23,7 @@
 // that is, writes the row's sum, and resets the ticket to 0 for the next
 // call. So two runs on one card give the same bits. The partials and the
 // tickets are scratch the wrapper allocates once per (device, rows,
-// stream) and reuses; kernels/sq_norm.py schedule mirrors this split.
+// stream) and reuses; tests/test_torch_kernel_layouts.py mirrors this split.
 #include <cuda_runtime.h>
 #include <stdint.h>
 

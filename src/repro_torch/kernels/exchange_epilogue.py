@@ -9,12 +9,13 @@ error-feedback residual (``thresh``, mean only). ``qdq_int8`` is the
 staged int8 codec's quantize+dequantize on (rows, chunk), any chunk.
 
 On a CUDA tensor each launches its kernel of ``csrc/exchange_epilogue.cu``
-or raises: ``codec_mix`` takes at most ``MAX_G`` groups and the int8
-chunk 256 (``codec_mix_takes``; the exchange routes every other stream to
-the staged codecs, as the reference's ``_fusable`` routes by shape). On a
-CPU tensor each takes ``ref.codec_mix_ref`` / ``ref.qdq_int8_ref``. The
-kernels are written to round like the plain versions, so the two agree
-bit for bit.
+or raises. ``codec_mix`` takes any G and int8 chunk, as the reference's
+does: up to ``MAX_G`` groups at the int8 chunk 256 (and every other kind)
+it keeps a column's rows in registers; any other stream runs the
+general kernel, which walks the rows one at a time over a scratch of the
+grid's windows. On a CPU tensor each takes ``ref.codec_mix_ref`` /
+``ref.qdq_int8_ref``. The kernels are written to round like the plain
+versions, so the two agree bit for bit.
 """
 from __future__ import annotations
 
@@ -22,21 +23,17 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import (build, check_buffer, grid_blocks,
-                                 resolve_impl, stream_of)
+                                 resolve_impl, sm_count, stream_of)
 from repro_torch.kernels.ref import codec_mix_ref, qdq_int8_ref
 
 KINDS = ("int8", "bf16", "fp16", "thresh")
-MAX_G = 16        # the kernel keeps all G rows of a column in registers
-CHUNK = 256       # codec_mix's int8 chunk (one block width)
+MAX_G = 16        # the register kernel keeps all G rows of a column
+CHUNK = 256       # its int8 chunk (one block width)
+WIDE_SCRATCH = 1 << 26   # floats of the general kernel's scratch, at most
 
 # kernel launches since a count was last set to 0
 launches = {"codec_mix": 0, "qdq_int8": 0}
-
-
-def codec_mix_takes(g: int, kind: str, chunk: int = CHUNK) -> bool:
-    """Whether the ``codec_mix`` kernel takes a stream of ``g`` groups
-    through ``kind`` (int8 with its ``chunk``)."""
-    return g <= MAX_G and (kind != "int8" or chunk == CHUNK)
+_w_dev: dict = {}   # (device index, W's bytes) -> W on the device
 
 
 def qdq_int8(rows, u, *, impl="auto"):
@@ -105,25 +102,43 @@ def codec_mix(x, x0, *, kind, u=None, w=None, hops=1, chunk=0,
         if residual_out is not None and res is not None:
             res = residual_out.copy_(res)
         return mixed, res
-    if not codec_mix_takes(g, kind, chunk):
-        raise ValueError(f"codec_mix: the kernel takes at most {MAX_G} "
-                         f"groups and the int8 chunk {CHUNK}, got {g} "
-                         f"groups, {kind} chunk {chunk}; the exchange "
-                         "routes such a stream to the staged codecs")
     if out is None:
         out = torch.empty_like(x)
     if kind == "thresh" and residual_out is None:
         residual_out = torch.empty_like(x)
     w_host = (None if w is None else
               np.ascontiguousarray(np.asarray(w, np.float32)))
-    nchunks = -(-n // CHUNK)
-    build.launch("exchange_epilogue", "repro_codec_mix", x.data_ptr(),
-                 x0.data_ptr(), 0 if u is None else u.data_ptr(),
-                 0 if residual is None else residual.data_ptr(),
-                 0 if tau is None else tau.data_ptr(), out.data_ptr(),
-                 0 if residual_out is None else residual_out.data_ptr(),
-                 None if w_host is None else w_host.ctypes.data, g, n,
-                 n_hops, KINDS.index(kind), grid_blocks(dev, nchunks),
-                 stream_of(x))
+    ptrs = (x.data_ptr(), x0.data_ptr(), 0 if u is None else u.data_ptr(),
+            0 if residual is None else residual.data_ptr(),
+            0 if tau is None else tau.data_ptr(), out.data_ptr(),
+            0 if residual_out is None else residual_out.data_ptr())
+    if g <= MAX_G and (kind != "int8" or chunk == CHUNK):
+        build.launch("exchange_epilogue", "repro_codec_mix", *ptrs,
+                     None if w_host is None else w_host.ctypes.data, g, n,
+                     n_hops, KINDS.index(kind),
+                     grid_blocks(dev, -(-n // CHUNK)), stream_of(x))
+    else:
+        win = chunk if kind == "int8" else CHUNK
+        per_block = win if w is None else 2 * g * win
+        blocks = min(grid_blocks(dev, -(-n // win)),
+                     max(sm_count(dev.index), WIDE_SCRATCH // per_block))
+        ws = torch.empty((blocks * per_block,), dtype=torch.float32,
+                         device=dev)
+        build.launch("exchange_epilogue", "repro_codec_mix_wide", *ptrs,
+                     0 if w_host is None else _w_on(dev, w_host).data_ptr(),
+                     ws.data_ptr(), g, n, chunk, n_hops, KINDS.index(kind),
+                     blocks, stream_of(x))
     launches["codec_mix"] += 1
     return out, (residual_out if kind == "thresh" else None)
+
+
+def _w_on(dev, w_host):
+    """The (G, G) float32 W on ``dev``, copied once per W and device (the
+    exchange's W is fixed for its lifetime)."""
+    key = (dev.index, w_host.shape, w_host.tobytes())
+    w_dev = _w_dev.get(key)
+    if w_dev is None:
+        if len(_w_dev) >= 16:
+            _w_dev.clear()
+        w_dev = _w_dev[key] = torch.from_numpy(w_host.copy()).to(dev)
+    return w_dev

@@ -4,7 +4,7 @@ The packed round's ``--opt sgd`` step: ``p <- p - lr*g`` over the whole
 (G, N) buffer in one pass, in place. On a CUDA tensor it launches
 ``repro_fused_sgd`` (``csrc/fused_update.cu``: one block a strip of the
 active rows, the mask read on the device); on a CPU tensor it takes
-``ref.sgd_ref``. ``schedule`` mirrors the kernel's split.
+``ref.sgd_ref``.
 """
 from __future__ import annotations
 
@@ -13,7 +13,6 @@ from repro_torch.kernels import (assign_rows, build, check_active,
 from repro_torch.kernels.ref import sgd_ref
 
 launches = 0     # kernel launches since the count was last set to 0
-STRIP = 128      # float4s a strip: the kernel's kStrip, one a thread
 
 
 def fused_sgd(p, g, *, lr, active=None, impl="auto"):
@@ -30,32 +29,3 @@ def fused_sgd(p, g, *, lr, active=None, impl="auto"):
     launches += 1
     return p
 
-
-def head_len(start: int, n: int) -> int:
-    """Elements of a row that starts ``start`` floats past a 16-byte grain
-    before its first float4: the kernels' ``head_len``."""
-    return min((4 - start % 4) % 4, n)
-
-
-def schedule(rows: int, n: int, active, grid: int, offset: int = 0) -> list:
-    """What each block of ``sgd_strips`` updates, in its order: for block
-    b, a list of (row, first, last) column ranges [first, last). The
-    strips of the active rows are numbered in row order (``STRIP`` float4s
-    of a row's body each, at least one a row); block b takes strip b (and
-    b + grid, ... where the grid is smaller than the strips, as past
-    CUDA's grid limit); the first strip of a row also takes its ragged
-    head and tail. The kernel's grid is one block a strip of every row.
-    ``offset``: the buffer's start, in floats past a 16-byte grain."""
-    act = [r for r in range(rows) if active is None or active[r]]
-    per_row = max(1, -(-(n // 4) // STRIP))
-    out = [[] for _ in range(grid)]
-    for s in range(len(act) * per_row):
-        r, c = act[s // per_row], s % per_row
-        head = head_len(offset + r * n, n)
-        nvec = (n - head) // 4
-        first, last = c * STRIP, min(nvec, (c + 1) * STRIP)
-        if first < last:
-            out[s % grid].append((r, head + 4 * first, head + 4 * last))
-        if c == 0:
-            out[s % grid] += [(r, 0, head), (r, head + 4 * nvec, n)]
-    return out

@@ -7,21 +7,17 @@ round. On a CUDA tensor it launches ``repro_sq_norm_groups``
 row's partials in a fixed order) with its partials and tickets scratch,
 allocated once per (device, rows, stream); on a CPU tensor it takes
 ``ref.sq_norm_groups_ref``. ``sq_norm`` is its one-row case, as in the
-reference. ``schedule`` and ``finish_sum`` mirror the kernel's split.
+reference.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from repro_torch.kernels import (build, check_rows, resolve_impl, sm_count,
                                  stream_of)
-from repro_torch.kernels.fused_sgd import head_len
 from repro_torch.kernels.ref import sq_norm_groups_ref
 
 launches = 0     # kernel launches since the count was last set to 0
-THREADS = 256
-STRIP = THREADS * 4      # float4s a strip: the kernel's kThreads x kU
 RESIDENT_PER_SM = 8      # at most 2048 threads an SM, 256 a block
 _scratch: dict = {}      # (device index, rows, stream) -> (partials, tickets)
 
@@ -57,53 +53,3 @@ def sq_norm(x, *, impl="auto"):
                          f"{tuple(x.shape)}")
     return sq_norm_groups(x[None], impl=impl)[0]
 
-
-def blocks_per_row(rows: int, n: int, resident: int, capacity: int) -> int:
-    """The kernel's blocks per row: the ``resident`` blocks shared over the
-    rows, at least 1, at most one a strip and ``capacity // rows``."""
-    return max(1, min(resident // rows, -(-(n // 4) // STRIP),
-                      capacity // rows))
-
-
-def schedule(n: int, bpr: int, start: int = 0) -> list:
-    """What each of a row's ``bpr`` blocks sums: for block x, a list of
-    [first, last) column ranges of the row, which starts ``start`` floats
-    past a 16-byte grain. Block x takes strips x, x + bpr, ... of the
-    row's float4 body; block 0 also the ragged head and tail."""
-    head = head_len(start, n)
-    nvec = (n - head) // 4
-    out = [[] for _ in range(bpr)]
-    for s in range(-(-nvec // STRIP)):
-        out[s % bpr].append((head + 4 * s * STRIP,
-                             head + 4 * min(nvec, (s + 1) * STRIP)))
-    out[0] += [(0, head), (head + 4 * nvec, n)]
-    return out
-
-
-def _block_sum(vals):
-    """The kernel's ``block_sum`` of one float32 per thread, in its order:
-    shuffles down by 16, 8, 4, 2, 1 in each warp (a lane whose partner is
-    past the warp keeps its own value), then warp 0 over the warp sums by
-    4, 2, 1."""
-    def warp(s, offsets):
-        s = s.copy()
-        for o in offsets:
-            s = s + np.concatenate([s[o:], s[32 - o:]])
-        return s[0]
-    sums = [warp(vals[w * 32:(w + 1) * 32], (16, 8, 4, 2, 1))
-            for w in range(THREADS // 32)]
-    lanes = np.zeros(32, np.float32)
-    lanes[:len(sums)] = sums
-    return warp(lanes, (4, 2, 1))
-
-
-def finish_sum(partials) -> np.float32:
-    """The row's sum as the block that draws the last ticket forms it, in
-    float32, whichever block that is: thread t adds partials t, t + 256,
-    ... in turn, then ``_block_sum``."""
-    partials = np.asarray(partials, np.float32)
-    acc = np.zeros(THREADS, np.float32)
-    for k in range(0, len(partials), THREADS):
-        chunk = partials[k:k + THREADS]
-        acc[:len(chunk)] += chunk
-    return _block_sum(acc)

@@ -1,11 +1,14 @@
 """The geometries the port's kernels take on the card, and the port against
 the reference at the geometries that used to be refused there.
 
-- ``codec_mix_takes`` and the exchange's routing: on a CUDA buffer a
-  stream of more than 16 groups, or an int8 chunk other than 256, takes
-  the staged codecs (which take any G and chunk, their int8 core being
-  ``qdq_int8``); elsewhere the fused epilogue, as before. Decided from a
-  device argument, so no card is needed.
+- the exchange's routing: a stream of more than 16 groups, or an int8
+  chunk other than 256, takes the fused epilogue like any other, as in
+  the reference (``codec_mix`` takes any G and chunk, on the card through
+  its general kernel).
+- ``codec_mix``'s plain version (what the CPU runs, and what the card's
+  kernels are held to bit for bit) against the reference's at G 17 and
+  32 and int8 chunks 37, 128 and 512, at ``test_torch_codecs``'
+  tolerances.
 - the exchange at G 32 (int8 server and ring, top-k) and at int8 chunk
   128, fused and staged, against the reference's on the same numpy inputs
   and noise, at ``test_torch_exchange``'s tolerance.
@@ -21,8 +24,10 @@ import pytest
 import torch
 
 from repro.comm import exchange as jexchange
+from repro.comm import topology as jtopo
 from repro.configs.base import all_configs
 from repro.kernels import decode_attention as jda
+from repro.kernels import exchange_epilogue as jee
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as jflash
 from repro_torch.comm import codecs, exchange
@@ -30,42 +35,98 @@ from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import exchange_epilogue as ee
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
-from test_torch_codecs import assert_close_up_to_flips
+from test_torch_codecs import ULP, assert_close_up_to_flips
 from test_torch_decode_attention import TOL as DECODE_TOL
 from test_torch_decode_attention import _case as decode_case
 from test_torch_decode_attention import _port as decode_port
 from test_torch_exchange import _delta_max, _hook
 from test_torch_flash_attention import F32, _qkv
 
-CUDA, CPU = torch.device("cuda"), torch.device("cpu")
+CPU = torch.device("cpu")
 
 
-@pytest.mark.parametrize("g,kind,chunk,want", [
-    (4, "int8", 256, True), (16, "int8", 256, True), (17, "int8", 256, False),
-    (32, "int8", 256, False), (4, "int8", 128, False), (4, "int8", 512, False),
-    (32, "bf16", 0, False), (16, "fp16", 0, True), (32, "thresh", 0, False),
-    (8, "thresh", 0, True)])
-def test_codec_mix_takes(g, kind, chunk, want):
-    assert ee.codec_mix_takes(g, kind, chunk) is want
+# (kind, mixing, G, N, int8 chunk, hops): past the register kernel's 16
+# groups, and int8 chunks other than its 256
+WIDE_MIX = [("int8", "mean", 32, 1000, 256, 1), ("bf16", "mean", 32, 700, 0, 1),
+            ("fp16", "mean", 17, 700, 0, 1), ("thresh", "mean", 32, 700, 0, 1),
+            ("int8", "ring", 17, 1000, 256, 2), ("bf16", "gossip", 32, 513, 0, 1),
+            ("int8", "mean", 4, 1000, 128, 1), ("int8", "mean", 3, 1000, 37, 1),
+            ("int8", "ring", 4, 1100, 512, 2), ("int8", "gossip", 20, 600, 128, 1)]
 
 
-@pytest.mark.parametrize("topo,codec,g,chunk,fused_on_cuda", [
-    ("server", "int8", 32, 256, False), ("ring", "int8", 32, 256, False),
-    ("gossip", "bf16", 32, 256, False), ("server", "topk", 32, 256, False),
-    ("server", "int8", 4, 128, False), ("ring", "int8", 4, 512, False),
-    ("server", "int8", 16, 256, True), ("gossip", "fp16", 8, 256, True),
-    ("server", "topk", 4, 256, True), ("server", "int8z", 4, 256, False),
-    ("async_stale", "int8", 4, 256, False)])
-def test_fusable_routes_what_the_kernel_does_not_take(topo, codec, g, chunk,
-                                                      fused_on_cuda):
+@pytest.mark.parametrize("kind,topo,G,N,chunk,hops", WIDE_MIX)
+def test_codec_mix_matches_reference_at_any_g_and_chunk(kind, topo, G, N,
+                                                        chunk, hops):
+    """The port's plain epilogue against the reference's staged path and
+    its Pallas kernel in interpret mode: bit-equal on the mean at a
+    power-of-two G, else within a few ulp (the reference multiplies by 1/G
+    and contracts W in XLA's order), a codec quantum on a few elements
+    from the second hop on."""
+    rs = np.random.RandomState(G * 1000 + N)
+    x0 = rs.randn(G, N).astype(np.float32)
+    x = x0 + (rs.randn(G, N) * 0.01).astype(np.float32)
+    w = None if topo == "mean" else jtopo.mixing_matrix(topo, G, seed=0)
+    nh = hops if w is not None else 1
+    u = res = tau = None
+    if kind == "int8":
+        u = rs.rand(nh, G * -(-N // chunk), chunk).astype(np.float32)
+    if kind == "thresh":
+        res = (rs.randn(G, N) * 0.005).astype(np.float32)
+        c = np.abs((x - x0) + res)
+        tau = np.sort(c, axis=1)[:, -(N // 10)][:, None].astype(np.float32)
+    kw = dict(kind=kind, w=w, hops=hops, chunk=chunk)
+    t = (lambda a: None if a is None else torch.tensor(a))
+    j = (lambda a: None if a is None else jnp.asarray(a))
+    before = dict(ee.launches)
+    got, got_res = ee.codec_mix(t(x), t(x0), u=t(u), residual=t(res),
+                                tau=t(tau), **kw)
+    assert ee.launches == before            # the plain version ran
+    got = got.numpy()
+    delta = np.abs(x).max() + np.abs(x0).max()
+    for impl in ("jnp", "pallas"):
+        want, want_res = jee.codec_mix(j(x), j(x0), u=j(u), residual=j(res),
+                                       tau=j(tau), impl=impl, **kw)
+        if impl == "jnp" and topo == "mean" and G in (1, 2, 4, 8):
+            np.testing.assert_array_equal(got, np.asarray(want))
+        elif hops == 1:
+            np.testing.assert_allclose(got, np.asarray(want), **ULP)
+        else:
+            assert_close_up_to_flips(got, want, kind, delta)
+        if kind == "thresh":
+            np.testing.assert_array_equal(got_res.numpy(),
+                                          np.asarray(want_res))
+
+
+@pytest.mark.parametrize("topo,codec,g,chunk", [
+    ("server", "int8", 32, 256), ("ring", "int8", 32, 256),
+    ("gossip", "bf16", 32, 256), ("server", "topk", 32, 256),
+    ("server", "int8", 4, 128), ("ring", "int8", 4, 512),
+    ("server", "int8", 16, 256), ("gossip", "fp16", 8, 256),
+    ("server", "topk", 4, 256), ("server", "int8z", 4, 256),
+    ("async_stale", "int8", 4, 256)])
+def test_fusable_takes_any_g_and_chunk(topo, codec, g, chunk):
+    """The fused epilogue covers its kinds and topologies whatever G and
+    the int8 chunk are, as in the reference."""
     ex = exchange.get_exchange(topo, codec, g, chunk=chunk)
     fits = (codec in ("int8", "fp16", "bf16", "topk")
             and topo in ("server", "ring", "gossip")
             and (codec != "topk" or topo == "server"))
-    assert ex._fusable(ex.codec, g, CUDA) is fused_on_cuda
-    # the plain epilogue on the CPU takes any G and chunk
-    assert ex._fusable(ex.codec, g, CPU) is fits
-    assert ex._fusable(ex.codec, g, "cpu") is fits
+    assert ex._fusable(ex.codec) is fits
+    jex = jexchange.get_exchange(topo, codec, g, chunk=chunk)
+    assert jex._fusable(jex.codec, jnp.zeros((g, 8), jnp.float32)) is fits
+
+
+@pytest.mark.parametrize("codec", ["fp16", "bf16", "int8", "topk"])
+def test_exchange_impl_reaches_the_fused_epilogue(codec):
+    """The exchange's ``impl`` (the launchers' ``--impl``) reaches
+    ``codec_mix`` through every fused codec, the casts included: ``cuda``
+    on a CPU buffer raises rather than run the plain version."""
+    assert exchange.get_exchange("server", codec, 4,
+                                 impl="torch").codec.impl == "torch"
+    ex = exchange.get_exchange("server", codec, 4, impl="cuda")
+    x0 = torch.zeros(4, 512)
+    with pytest.raises(ValueError, match="impl='cuda'"):
+        ex.streams({"params": x0 + 1.0}, {"params": x0}, ex.init(x0))
 
 
 @pytest.mark.parametrize("topo,codec,g,chunk,fused", [
@@ -74,8 +135,8 @@ def test_fusable_routes_what_the_kernel_does_not_take(topo, codec, g, chunk,
     ("server", "int8", 4, 128, False), ("server", "int8", 4, 128, True)])
 def test_exchange_matches_reference(topo, codec, g, chunk, fused):
     """Two rounds of the params stream through the port's exchange (the
-    staged codecs, the route a CUDA buffer takes here, and the fused
-    plain epilogue) against the reference's, with its noise."""
+    staged codecs, and the fused plain epilogue, the route these streams
+    take) against the reference's, with its noise."""
     n, seed = 701, 5
     kw = dict(mix_rounds=2 if topo == "ring" else 1, seed=seed, chunk=chunk)
     port = exchange.get_exchange(topo, codec, g, fused=fused,

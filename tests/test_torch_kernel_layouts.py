@@ -2,21 +2,42 @@
 though it cannot run the kernels: ``rmsnorm.layout`` (which threads of
 ``csrc/rmsnorm.cu`` take which row and which 16-byte vectors of it),
 ``flash_attention.tile_schedule`` (which query tiles each block of
-``csrc/flash_attention.cu`` takes), ``fused_sgd.schedule`` (which strips
-of the active rows each block of ``sgd_strips`` in
-``csrc/fused_update.cu`` updates) and ``sq_norm.schedule`` /
-``sq_norm.finish_sum`` (which strips each block of a row of
-``csrc/sq_norm.cu`` sums, and the order in which the row's last block
-sums the partials). The assignments repeat the kernels' index
-arithmetic; each must reach every row and column, or every (query tile,
-head), exactly once, and no inactive row."""
+``csrc/flash_attention.cu`` takes); and mirrors kept here of two kernels'
+split, which no wrapper needs: ``sgd_schedule`` (which strips of the
+active rows each block of ``sgd_strips`` in ``csrc/fused_update.cu``
+updates) and ``norm_schedule`` / ``norm_finish_sum`` (which strips each
+block of a row of ``csrc/sq_norm.cu`` sums, and the order in which the
+row's last block sums the partials), their constants read from the
+sources. The assignments repeat the kernels' index arithmetic; each must
+reach every row and column, or every (query tile, head), exactly once,
+and no inactive row. (On the card, ``chip_smoke.py`` holds both kernels
+bit-equal to their plain versions and on a rerun.)"""
+import os
+import re
+
 import numpy as np
 import pytest
 
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels import fused_sgd as fs
 from repro_torch.kernels import rmsnorm as rn
-from repro_torch.kernels import sq_norm as sn
+
+CSRC = os.path.join(os.path.dirname(fa.__file__), "csrc")
+
+
+def _cu_int(stem, expr):
+    """The integer a ``constexpr`` line of ``csrc/<stem>.cu`` gives, where
+    ``expr`` matches it (a product of constants of the same file)."""
+    src = open(os.path.join(CSRC, stem + ".cu")).read()
+    value = re.search(r"constexpr \w+ " + expr + r" = ([^;]+);", src).group(1)
+    value = value.replace("static_cast<int64_t>", "")
+    for name, v in re.findall(r"constexpr \w+ (k\w+) = (\d+);", src):
+        value = re.sub(r"\b" + name + r"\b", v, value)
+    return int(eval(value, {}))   # noqa: S307 -- products of integers
+
+
+SGD_STRIP = _cu_int("fused_update", "kStrip")     # float4s, one a thread
+NORM_THREADS = _cu_int("sq_norm", "kThreads")
+NORM_STRIP = _cu_int("sq_norm", "kStrip")         # kThreads x kU float4s
 
 # chip_smoke.py RMS_FULL, RMS_WIDE and RMS_EDGE (rows flattened), and
 # ragged widths
@@ -110,9 +131,97 @@ def test_flash_schedule_visits_each_tile_once(S):
         assert work[-1] == nq // 2 + 1    # the middle tile alone
 
 
+def head_len(start: int, n: int) -> int:
+    """Elements of a row that starts ``start`` floats past a 16-byte grain
+    before its first float4 (``head_len`` in both sources)."""
+    return min((4 - start % 4) % 4, n)
+
+
+def sgd_schedule(rows: int, n: int, active, grid: int, offset: int = 0):
+    """What each block of ``sgd_strips`` (csrc/fused_update.cu, its loop
+    ``for (int64_t s = blockIdx.x; s < total; s += gridDim.x)`` and the
+    row cursor) updates, in its order: for block b, a list of (row,
+    first, last) column ranges. The strips of the active rows are
+    numbered in row order (``strips_per_row``: SGD_STRIP float4s of a
+    row's body each, at least one a row); block b takes strip b, b +
+    grid, ...; the first strip of a row also takes its ragged head and
+    tail. ``offset``: the buffer's start, in floats past a 16-byte
+    grain."""
+    act = [r for r in range(rows) if active is None or active[r]]
+    per_row = max(1, -(-(n // 4) // SGD_STRIP))
+    out = [[] for _ in range(grid)]
+    for s in range(len(act) * per_row):
+        r, c = act[s // per_row], s % per_row
+        head = head_len(offset + r * n, n)
+        nvec = (n - head) // 4
+        first, last = c * SGD_STRIP, min(nvec, (c + 1) * SGD_STRIP)
+        if first < last:
+            out[s % grid].append((r, head + 4 * first, head + 4 * last))
+        if c == 0:
+            out[s % grid] += [(r, 0, head), (r, head + 4 * nvec, n)]
+    return out
+
+
+def norm_blocks_per_row(rows: int, n: int, resident: int,
+                        capacity: int) -> int:
+    """``blocks_per_row`` of csrc/sq_norm.cu: the ``resident`` blocks
+    shared over the rows, at least 1, at most one a strip and
+    ``capacity // rows``."""
+    return max(1, min(resident // rows, -(-(n // 4) // NORM_STRIP),
+                      capacity // rows))
+
+
+def norm_schedule(n: int, bpr: int, start: int = 0):
+    """What each of a row's ``bpr`` blocks of ``sq_norm_rows`` sums (its
+    loop ``for (int64_t k0 = blockIdx.x * kStrip + threadIdx.x; ...; k0 +=
+    bpr * kStrip)``): for block x, a list of [first, last) column ranges
+    of a row that starts ``start`` floats past a 16-byte grain. Block x
+    takes strips x, x + bpr, ... of the float4 body; block 0 also the
+    ragged head and tail."""
+    head = head_len(start, n)
+    nvec = (n - head) // 4
+    out = [[] for _ in range(bpr)]
+    for s in range(-(-nvec // NORM_STRIP)):
+        out[s % bpr].append((head + 4 * s * NORM_STRIP,
+                             head + 4 * min(nvec, (s + 1) * NORM_STRIP)))
+    out[0] += [(0, head), (head + 4 * nvec, n)]
+    return out
+
+
+def _block_sum(vals):
+    """``block_sum`` of csrc/sq_norm.cu on one float32 a thread, in its
+    order: shuffles down by 16, 8, 4, 2, 1 in each warp (a lane whose
+    partner is past the warp keeps its own value), then warp 0 over the
+    warp sums by kWarps / 2, ..., 1."""
+    def warp(s, offsets):
+        s = s.copy()
+        for o in offsets:
+            s = s + np.concatenate([s[o:], s[32 - o:]])
+        return s[0]
+    n_warps = NORM_THREADS // 32
+    sums = [warp(vals[w * 32:(w + 1) * 32], (16, 8, 4, 2, 1))
+            for w in range(n_warps)]
+    lanes = np.zeros(32, np.float32)
+    lanes[:len(sums)] = sums
+    return warp(lanes, [n_warps >> i for i in range(1, n_warps.bit_length())])
+
+
+def norm_finish_sum(partials) -> np.float32:
+    """The row's sum as the block that draws the last ticket forms it
+    (``for (int64_t k = threadIdx.x; k < bpr; k += kThreads) t +=
+    partials[...]``, then ``block_sum``), in float32, whichever block
+    that is."""
+    partials = np.asarray(partials, np.float32)
+    acc = np.zeros(NORM_THREADS, np.float32)
+    for k in range(0, len(partials), NORM_THREADS):
+        chunk = partials[k:k + NORM_THREADS]
+        acc[:len(chunk)] += chunk
+    return _block_sum(acc)
+
+
 # ragged widths (shorter than a float4, a strip and a bit, several
 # strips plus a tail) and the active masks of 1 to 4 rows of 4
-SGD_WIDTHS = [1, 3, 5, 4099, 3 * 4 * fs.STRIP + 7]
+SGD_WIDTHS = [1, 3, 5, 4099, 3 * 4 * SGD_STRIP + 7]
 SGD_MASKS = [None, (1, 0, 0, 0), (0, 0, 1, 0), (0, 1, 1, 0), (1, 1, 0, 1),
              (0, 0, 0, 0)]
 
@@ -125,9 +234,11 @@ def test_sgd_schedule_updates_each_active_element_once(n, offset, active):
     want = np.zeros((rows, n), np.int64)
     for r in range(rows):
         want[r] = active is None or active[r]
-    kernel_grid = rows * max(1, -(-(n // 4) // fs.STRIP))   # one a strip
-    for grid in (1, 3, 1056, kernel_grid):
-        sched = fs.schedule(rows, n, active, grid, offset)
+    # the kernel's grids: one block a strip of every row (no mask), or of
+    # one row (a mask), and smaller ones, as past CUDA's grid limit
+    per_row = max(1, -(-(n // 4) // SGD_STRIP))
+    for grid in (1, 3, 1056, per_row, rows * per_row):
+        sched = sgd_schedule(rows, n, active, grid, offset)
         assert len(sched) == grid
         hits = np.zeros((rows, n), np.int64)
         for blk in sched:
@@ -140,21 +251,25 @@ def test_sgd_schedule_updates_each_active_element_once(n, offset, active):
 
 
 def test_sgd_schedule_spreads_one_active_row_over_every_block():
-    """A step of the per-group T_i schedule with one row of four active:
-    its strips fill the whole grid, where one grid row a buffer row left
-    three quarters of it idle."""
-    n, grid = 64 * 4 * fs.STRIP, 16
-    sched = fs.schedule(4, n, (0, 0, 1, 0), grid)
+    """A step of the per-group T_i schedule with one row of four active,
+    on the masked grid (one block a strip of one row): every block
+    updates one strip, where a grid over every row's strips would leave
+    three quarters of its blocks without work."""
+    n = 64 * 4 * SGD_STRIP
+    grid = -(-(n // 4) // SGD_STRIP)
+    sched = sgd_schedule(4, n, (0, 0, 1, 0), grid)
     work = [sum(last - first for _, first, last in blk) for blk in sched]
-    assert min(work) == max(work) == n // grid
+    assert min(work) == max(work) == 4 * SGD_STRIP
+    wide = sgd_schedule(4, n, (0, 0, 1, 0), 4 * grid)
+    assert sum(1 for blk in wide if blk) == grid
 
 
-@pytest.mark.parametrize("n", [1, 3, 4099, 3 * 4 * sn.STRIP + 7, 40_000])
+@pytest.mark.parametrize("n", [1, 3, 4099, 3 * 4 * NORM_STRIP + 7, 40_000])
 @pytest.mark.parametrize("start", [0, 1, 2, 3])
 @pytest.mark.parametrize("bpr", [1, 2, 7])
 def test_sq_norm_schedule_sums_each_element_once(n, start, bpr):
     hits = np.zeros(n, np.int64)
-    for blk in sn.schedule(n, bpr, start):
+    for blk in norm_schedule(n, bpr, start):
         for first, last in blk:
             hits[first:last] += 1
     np.testing.assert_array_equal(hits, 1)
@@ -169,10 +284,10 @@ def test_sq_norm_finish_takes_each_partial_once_in_a_fixed_order(bpr):
     for i in sorted({0, bpr // 2, bpr - 1}):
         onehot = np.zeros(bpr, np.float32)
         onehot[i] = 1.0
-        assert sn.finish_sum(onehot) == 1.0
+        assert norm_finish_sum(onehot) == 1.0
     parts = np.random.default_rng(bpr).random(bpr).astype(np.float32)
-    got = sn.finish_sum(parts)
-    assert got.dtype == np.float32 and got == sn.finish_sum(parts.copy())
+    got = norm_finish_sum(parts)
+    assert got.dtype == np.float32 and got == norm_finish_sum(parts.copy())
     np.testing.assert_allclose(got, parts.astype(np.float64).sum(),
                                rtol=1e-6)
 
@@ -181,9 +296,9 @@ def test_sq_norm_blocks_per_row():
     """The resident blocks (132 SMs x 8) shared over the rows, clamped to
     the strips of a row and to the scratch."""
     n = 124_662_528                   # paper-lenet's packed buffer
-    assert sn.blocks_per_row(4, n, 1056, 1056) == 264
-    assert sn.blocks_per_row(1, n, 1056, 1056) == 1056
-    assert sn.blocks_per_row(2000, n, 1056, 2000) == 1
-    assert sn.blocks_per_row(4, 4099, 1056, 1056) == 1
-    assert sn.blocks_per_row(4, 3 * 4 * sn.STRIP + 7, 1056, 1056) == 4
-    assert sn.blocks_per_row(4, 3, 1056, 1056) == 1
+    assert norm_blocks_per_row(4, n, 1056, 1056) == 264
+    assert norm_blocks_per_row(1, n, 1056, 1056) == 1056
+    assert norm_blocks_per_row(2000, n, 1056, 2000) == 1
+    assert norm_blocks_per_row(4, 4099, 1056, 1056) == 1
+    assert norm_blocks_per_row(4, 3 * 4 * NORM_STRIP + 7, 1056, 1056) == 4
+    assert norm_blocks_per_row(4, 3, 1056, 1056) == 1
