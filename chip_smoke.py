@@ -8,8 +8,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. the device: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. the build: every CUDA C++ kernel of ``src/repro_torch/kernels/csrc``
    compiled with nvcc for sm_90a (one process per source, in parallel),
-   and the TF32 ``HMMA`` instructions in the flash library's SASS
-   counted (``cuobjdump -sass``);
+   and the TF32 ``HMMA`` instructions in the flash and mamba libraries'
+   SASS counted (``cuobjdump -sass``); neither count may be 0;
 3. each kernel against its plain PyTorch version on the card, at the main
    path's shape (4, 124,662,528), a ragged (3, 1,000,003) and a few
    tiny ragged shapes, with a row switched off by the ``active`` mask
@@ -64,7 +64,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    on the trash row; float32 and bfloat16 queries), qwen3-32b's head
    geometry (KV 8, g 8, hd 128, page 16, lengths up to 4096), tiny
    ragged ones (GQA, MHA, MQA), g 3, 6 (nemotron-4-15b) and 16
-   (llama3-405b) and hd 112 (zamba2-7b); ``flash_attention`` at
+   (llama3-405b), hd 112 (zamba2-7b), hd 50 and 3 (no multiple of 4:
+   the kernel's scalar loads) and 65,535 slots, and at the three timed
+   shapes below, where each must also give the same bits on a rerun;
+   ``flash_attention`` at
    paper-lenet's prefill (1, 12, 1024, 64) float32, (2, 12, 2048, 64), a bfloat16 case,
    GQA at qwen3-32b's head_dim 128, tiny shapes (unequal blocks, a
    sequence that is no multiple of the kernel's 64-row tile), S 1000 and
@@ -84,7 +87,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    20) at the serve path's shapes beside its bound, its plain version and,
    for flash, ``scaled_dot_product_attention(is_causal=True)`` (a
    yardstick the port never calls; no single PyTorch call computes paged
-   attention; the profiler names SDPA's device kernel once). Flash is
+   attention; the profiler names SDPA's device kernel once). Decode is
+   timed, the call and the device alone, at ``decode_timed``'s shapes:
+   paper-lenet's step (B 8, lengths 528-1056), one request (B 1, length
+   1056) and qwen3-32b's head geometry (B 8, lengths 2064-4096). Flash is
    timed at (1, 12, 1024, 64), (2, 12, 2048, 64), (1, 64, 8, 2048,
    128) and (1, 32, 32, 2048, 112), beside the bound of its design
    (3xTF32 on the tensor cores) and the float32 bound outside them. Times are those of the call (the
@@ -126,8 +132,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    256) and at chunks 256, 128 and 37 over row counts that are no
    multiple of 8, with all-zero rows; ``mamba_chunk`` at zamba2-7b's
    full width (B 1, c 32, L 128, H 112, N 64, P 64; float32 and bfloat16
-   xh), the reference test's shapes, L 96, and a = -50 with dt =
-   softplus(3), where the decay above the diagonal overflows. Tolerances:
+   xh), the reference test's shapes, L 96, a = -50 with dt =
+   softplus(3), where the decay above the diagonal overflows, and a =
+   0.002, where cum increases (the kernel then takes every weight's exp
+   directly, not in factors). Tolerances:
    ``rmsnorm`` float32 rtol/atol 1e-6 (another summation order), bfloat16
    one bfloat16 step; the quantize pair bit-equal, and composed
    bit-equal to ``qdq_int8``'s kernel and plain version; ``mamba_chunk``
@@ -136,7 +144,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    beside its bound, its plain version and, for ``rmsnorm`` and
    dequantize, one PyTorch call (``F.rms_norm``, ``torch.mul(q,
    scales)``; yardsticks the port never calls; for ``rmsnorm`` and its
-   library call the device's time is logged beside the call's). Then
+   library call, and for ``mamba_chunk``, the device's time is logged
+   beside the call's; ``mamba_chunk``'s bound is its design's, bytes,
+   with the 3xTF32 and float32 operation bounds logged beside it). Then
    this slice's path:
    with every count set to 0, each of the eleven ``ops`` functions is
    called once on the card (the last four at the full-width shapes, the
@@ -147,8 +157,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 The line before the last is one JSON object with each kernel's numbers
 (the launches of phases 5 and 8 for the first eight, of phase 10's
-``ops`` path for the last four); the last line is ``{"ok": true,
-"device": {...}}``.
+``ops`` path for the last four; ``paged_decode_attention`` and
+``mamba_chunk`` also carry ``device_ms``, the device's time alone at the
+shape of their ``ms``); the last line is ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
@@ -1048,6 +1060,100 @@ def _decode_case(torch, gen, B, n_kv, g, hd, ps, nblk, lengths, trash=()):
     return q, pool, rows_k, rows_v, lengths
 
 
+# phase 7's decode cases, (geometry, lengths, trash slots): paper-lenet's
+# geometry with lengths on page edges, qwen3-32b's head geometry, tiny
+# ragged ones (GQA, MHA, MQA), head groups of 3, nemotron-4-15b's 6 and
+# llama3-405b's 16, zamba2-7b's head dim 112 (alone and with 16 heads a KV
+# head), head dims that are no multiple of 4 (the kernel's scalar loads),
+# and CUDA's 65,535 slots
+_LENET_DECODE = dict(B=8, n_kv=LENET_HEADS[0], g=1, hd=LENET_HEADS[1], ps=16,
+                     nblk=66)
+DECODE_CASES = [
+    (_LENET_DECODE, [1, 15, 16, 17, 512, 1023, 1056, 1], (7,)),
+    (dict(B=4, n_kv=8, g=8, hd=128, ps=16, nblk=256), [4096, 1, 2049, 17], ()),
+    (dict(B=3, n_kv=2, g=2, hd=8, ps=4, nblk=5), [1, 7, 20], (1,)),
+    (dict(B=5, n_kv=4, g=1, hd=16, ps=8, nblk=3), [24, 9, 1, 8, 16], ()),
+    (dict(B=2, n_kv=1, g=8, hd=32, ps=4, nblk=2), [5, 8], ()),
+    (dict(B=3, n_kv=4, g=3, hd=64, ps=16, nblk=20), [320, 1, 77], (1,)),
+    (dict(B=3, n_kv=8, g=6, hd=128, ps=16, nblk=64), [1024, 513, 1], ()),
+    (dict(B=2, n_kv=8, g=16, hd=128, ps=16, nblk=128), [2048, 17], ()),
+    (dict(B=4, n_kv=32, g=1, hd=112, ps=16, nblk=32), [512, 1, 300, 17], ()),
+    (dict(B=2, n_kv=2, g=16, hd=112, ps=8, nblk=9), [72, 5], ()),
+    (dict(B=3, n_kv=2, g=2, hd=50, ps=16, nblk=12), [180, 1, 33], (1,)),
+    (dict(B=2, n_kv=3, g=5, hd=3, ps=4, nblk=40), [160, 7], ()),
+    (dict(B=65535, n_kv=1, g=2, hd=4, ps=2, nblk=2),
+     [1 + b % 4 for b in range(65535)], (5,)),
+]
+
+
+def check_decode_case(torch, da, gen, kw, lengths, trash=()):
+    """The decode kernel against its plain version at one case, float32
+    (``ATTN_TOL``) and bfloat16 queries (``BF16_STEP``); returns the
+    float32 max abs error."""
+    q, pool, rk, rv, ln = _decode_case(torch, gen, **kw, lengths=lengths,
+                                       trash=trash)
+    args = (pool, rk, rv, ln)
+    ak = dict(page_size=kw["ps"], n_kv=kw["n_kv"])
+    shown = lengths if len(lengths) <= 16 else f"{len(lengths)} lengths"
+    got = da.paged_decode_attention(q, *args, impl="cuda", **ak)
+    want = da.paged_decode_attention(q, *args, impl="torch", **ak)
+    err = compare(f"paged_decode_attention {kw} lengths {shown}", got, want,
+                  **ATTN_TOL)
+    qb = q.to(torch.bfloat16)
+    got = da.paged_decode_attention(qb, *args, impl="cuda", **ak)
+    want = da.paged_decode_attention(qb.float(), *args, impl="torch",
+                                     **ak).to(torch.bfloat16)
+    e16 = compare(f"paged_decode_attention bf16 {kw}", got.float(),
+                  want.float(), **BF16_STEP)
+    log(f"paged_decode_attention agrees with its plain version at {kw}, "
+        f"lengths {shown}, trash slots {list(trash)} (max abs err "
+        f"{err:.3e}; bf16 q: {e16:.3e})")
+    return err
+
+
+def decode_timed(torch):
+    """The decode times of phase 7, (name, geometry, lengths): paper-lenet's
+    decode step over 8 slots (lengths from the serve workload's prompt
+    range plus the generated tokens, seed 0), one request alone at the
+    longest length, and qwen3-32b's head geometry (64 query heads over 8
+    KV heads of 128, pages of 16) at lengths over its upper half of 4096
+    (seed 0)."""
+    H, hd = LENET_HEADS
+    lenet = dict(n_kv=H, g=1, hd=hd, ps=16, nblk=66)
+    seed = torch.Generator().manual_seed(0)
+    rng_len = torch.randint(512 + 16, 1056 + 1, (8,), generator=seed).tolist()
+    seed = torch.Generator().manual_seed(0)
+    long_len = torch.randint(2048 + 16, 4096 + 1, (8,),
+                             generator=seed).tolist()
+    return (("paper-lenet B 8", dict(B=8, **lenet), rng_len),
+            ("paper-lenet B 1", dict(B=1, **lenet), [1056]),
+            ("qwen3-32b heads B 8", dict(B=8, n_kv=8, g=8, hd=128, ps=16,
+                                         nblk=256), long_len))
+
+
+def decode_times(torch, da, gen, kw, lengths, plain=False):
+    """The decode kernel at one timed shape: held against its plain
+    version (``ATTN_TOL``) and bit-equal on a rerun; then the call's and
+    the device's ms, the bound and, where ``plain``, the plain version's
+    ms."""
+    q, pool, rk, rv, ln = _decode_case(torch, gen, **kw, lengths=lengths)
+    ak = dict(page_size=kw["ps"], n_kv=kw["n_kv"])
+
+    def run(impl="cuda"):
+        return da.paged_decode_attention(q, pool, rk, rv, ln, impl=impl, **ak)
+    got = run()
+    err = compare(f"paged_decode_attention {kw} lengths {lengths}", got,
+                  run("torch"), **ATTN_TOL)
+    if not torch.equal(got, run()):
+        fail(f"paged_decode_attention {kw}: two runs differ")
+    t = dict(err=err, ms=time_ms(run, torch),
+             device_ms=time_ms(run, torch, device_only=True),
+             bound=_decode_bound(q, kw["n_kv"], ln, kw["nblk"]),
+             plain_ms=time_ms(lambda: run("torch"), torch) if plain else None)
+    del q, pool
+    return t
+
+
 def _decode_bound(q, n_kv, lengths, nblk):
     """Bytes: q and out, each live token's K and V of every KV head once,
     the two page tables and the lengths; operations: q.k and p.v, 2 flops
@@ -1126,13 +1232,14 @@ def _sdpa_kernel_name(torch, q, k, v):
     return backend, kernels or ["(the profiler captured no device kernel)"]
 
 
-def sass_tf32_mma(build):
-    """The TF32 HMMA instructions in the flash library's SASS."""
+def sass_tf32_mma(build, stem):
+    """The TF32 HMMA instructions in the SASS of ``csrc/<stem>.cu``'s
+    library."""
     import shutil
     tool = shutil.which("cuobjdump") or os.path.join(
         os.path.dirname(build.nvcc()), "cuobjdump")
     sass = subprocess.run(
-        [tool, "-sass", str(build.library_path("flash_attention"))],
+        [tool, "-sass", str(build.library_path(stem))],
         capture_output=True, text=True, timeout=300, check=True).stdout
     return sum(1 for line in sass.splitlines()
                if "HMMA" in line and "TF32" in line)
@@ -1148,46 +1255,13 @@ def check_attention_kernels(torch, results, tf32_mma):
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     H, hd = LENET_HEADS
-    lenet = dict(B=8, n_kv=H, g=1, hd=hd, ps=16, nblk=66)
-    decode_cases = [
-        (lenet, [1, 15, 16, 17, 512, 1023, 1056, 1], (7,)),
-        (dict(B=4, n_kv=8, g=8, hd=128, ps=16, nblk=256),
-         [4096, 1, 2049, 17], ()),
-        (dict(B=3, n_kv=2, g=2, hd=8, ps=4, nblk=5), [1, 7, 20], (1,)),
-        (dict(B=5, n_kv=4, g=1, hd=16, ps=8, nblk=3), [24, 9, 1, 8, 16], ()),
-        (dict(B=2, n_kv=1, g=8, hd=32, ps=4, nblk=2), [5, 8], ()),
-        # head groups of 3, nemotron-4-15b's 6 and llama3-405b's 16, and
-        # zamba2-7b's head dim 112 (alone and with 16 heads a KV head)
-        (dict(B=3, n_kv=4, g=3, hd=64, ps=16, nblk=20), [320, 1, 77], (1,)),
-        (dict(B=3, n_kv=8, g=6, hd=128, ps=16, nblk=64), [1024, 513, 1], ()),
-        (dict(B=2, n_kv=8, g=16, hd=128, ps=16, nblk=128), [2048, 17], ()),
-        (dict(B=4, n_kv=32, g=1, hd=112, ps=16, nblk=32), [512, 1, 300, 17],
-         ()),
-        (dict(B=2, n_kv=2, g=16, hd=112, ps=8, nblk=9), [72, 5], ()),
-    ]
 
     def note(name, err):
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
 
-    for kw, lengths, trash in decode_cases:
-        q, pool, rk, rv, ln = _decode_case(torch, gen, **kw,
-                                           lengths=lengths, trash=trash)
-        args = (pool, rk, rv, ln)
-        ak = dict(page_size=kw["ps"], n_kv=kw["n_kv"])
-        got = da.paged_decode_attention(q, *args, impl="cuda", **ak)
-        want = da.paged_decode_attention(q, *args, impl="torch", **ak)
-        note("paged_decode_attention", compare(
-            f"paged_decode_attention {kw} lengths {lengths}", got, want,
-            **ATTN_TOL))
-        qb = q.to(torch.bfloat16)
-        got = da.paged_decode_attention(qb, *args, impl="cuda", **ak)
-        want = da.paged_decode_attention(qb.float(), *args, impl="torch",
-                                         **ak).to(torch.bfloat16)
-        err = compare(f"paged_decode_attention bf16 {kw}", got.float(),
-                      want.float(), **BF16_STEP)
-        log(f"paged_decode_attention agrees with its plain version at {kw}, "
-            f"lengths {lengths}, trash slots {list(trash)} (bf16 q: max "
-            f"abs err {err:.3e})")
+    for kw, lengths, trash in DECODE_CASES:
+        note("paged_decode_attention",
+             check_decode_case(torch, da, gen, kw, lengths, trash))
 
     # flash: (B, H, KV, S, hd, dtype, block_q, block_k)
     flash_cases = [
@@ -1254,24 +1328,23 @@ def check_attention_kernels(torch, results, tf32_mma):
             del again
         del q, k, v, got, want
 
-    # times at the serve path's shapes: the decode step over 8 slots with
-    # lengths from the workload's range, the prefill at the 1024 bucket
-    rng_len = torch.randint(512 + 16, 1056 + 1, (8,), generator=torch.Generator(
-    ).manual_seed(0)).tolist()
-    q, pool, rk, rv, ln = _decode_case(torch, gen, **lenet, lengths=rng_len)
-    ak = dict(page_size=16, n_kv=H)
+    # times at the serve path's shapes: the decode step (and one request,
+    # and qwen3-32b's heads), the prefill at the 1024 bucket
     r = results["paged_decode_attention"]
-    r["ms"] = time_ms(lambda: da.paged_decode_attention(
-        q, pool, rk, rv, ln, impl="cuda", **ak), torch)
-    r["plain_ms"] = time_ms(lambda: da.paged_decode_attention(
-        q, pool, rk, rv, ln, impl="torch", **ak), torch)
-    r["library_ms"] = None
-    r["bound_ms"], r["bound_by"] = _decode_bound(q, H, ln, 66)
-    log(f"paged_decode_attention B 8, lengths {rng_len} kernel_ms "
-        f"{r['ms']:.4f} bound_ms {r['bound_ms']:.4f} ({r['bound_by']}) "
-        f"plain_ms {r['plain_ms']:.4f} library_ms none (no single PyTorch "
-        f"call) max_abs_err {r['max_abs_err']:.3e}")
-    del q, pool
+    for i, (name, kw, lengths) in enumerate(decode_timed(torch)):
+        t = decode_times(torch, da, gen, kw, lengths, plain=i == 0)
+        note("paged_decode_attention", t["err"])
+        log(f"paged_decode_attention {name} {kw}, lengths {lengths}: a rerun "
+            f"gives the same bits; kernel_ms {t['ms']:.4f} (device "
+            f"{t['device_ms']:.4f}) bound_ms {t['bound'][0]:.4f} "
+            f"({t['bound'][1]}) max_abs_err {t['err']:.3e}")
+        if i == 0:
+            r.update(ms=t["ms"], device_ms=t["device_ms"],
+                     plain_ms=t["plain_ms"], library_ms=None)
+            r["bound_ms"], r["bound_by"] = t["bound"]
+    log(f"paged_decode_attention {decode_timed(torch)[0][0]} plain_ms "
+        f"{r['plain_ms']:.4f} library_ms none (no single PyTorch call) "
+        f"max_abs_err {r['max_abs_err']:.3e}")
     q, k, v, t = _flash_times(torch, fa, FLASH_TIMED[0], gen)
     r = results["flash_attention"]
     r["plain_ms"] = time_ms(lambda: fa.flash_attention(q, k, v, impl="torch"),
@@ -1566,15 +1639,26 @@ def _quant_bounds(rows, chunk):
             bound_of(5 * n + 4 * rows, n))
 
 
-def _mamba_bound(B, c, L, H, N, P):
-    """Bytes: xh and y, bmat and cmat, dt and cum, a, the states and the
-    decay, each once; operations (2 per multiply-add): the causal half of
-    C B^T once per chunk, the causal half of (C B^T * W) x and the state
-    product per (chunk, head)."""
+def _mamba_ops(B, c, L, H, N, P):
+    """Operations (2 per multiply-add): the causal half of C B^T once per
+    chunk, the causal half of (C B^T * W) x and the state product per
+    (chunk, head)."""
     bc, tri = B * c, L * (L + 1) // 2
+    return bc * 2 * N * tri + bc * H * (2 * P * tri + 2 * N * P * L)
+
+
+def _mamba_bound(B, c, L, H, N, P, tensor_cores=True):
+    """Bytes: xh and y, bmat and cmat, dt and cum, a, the states and the
+    decay, each once; operations: ``_mamba_ops``, for the kernel's design
+    (``tensor_cores``) three TF32 products each (the 3xTF32 split) at the
+    TF32 tensor-core rate, else at the float32 rate outside the tensor
+    cores."""
+    bc = B * c
     nbytes = 4 * (2 * bc * L * H * P + 2 * bc * L * N + 2 * bc * L * H + H
                   + bc * H * N * P + bc * H)
-    ops = bc * 2 * N * tri + bc * H * (2 * P * tri + 2 * N * P * L)
+    ops = _mamba_ops(B, c, L, H, N, P)
+    if tensor_cores:
+        return bound_of(nbytes, 3 * ops, TF32_OPS_PER_S)
     return bound_of(nbytes, ops)
 
 
@@ -1718,6 +1802,7 @@ def check_last_four(torch, results):
     cases = ([(MAMBA_FULL, {}), (MAMBA_FULL, dict(xdtype=torch.bfloat16))]
              + [(s, {}) for s in MAMBA_EDGE]
              + [(MAMBA_EDGE[2], dict(a=-50.0, dt=3.0485873222351074)),
+                (MAMBA_EDGE[2], dict(a=0.002)),
                 (MAMBA_EDGE[3], dict(xdtype=torch.bfloat16))])
     for shape, kw in cases:
         args = _mamba_inputs(torch, gen, shape, **kw)
@@ -1730,16 +1815,21 @@ def check_last_four(torch, results):
         log(f"mamba_chunk agrees with its plain version at {tag}")
         if shape == MAMBA_FULL and not kw:
             r = results["mamba_chunk"]
-            r["ms"] = time_ms(lambda: ms.mamba_chunk(*args, impl="cuda"),
-                              torch)
+            run = lambda: ms.mamba_chunk(*args, impl="cuda")  # noqa: E731
+            r["ms"] = time_ms(run, torch)
+            r["device_ms"] = time_ms(run, torch, device_only=True)
             r["plain_ms"] = time_ms(lambda: ms.mamba_chunk(
                 *args, impl="torch"), torch)
             r["library_ms"] = None
             r["bound_ms"], r["bound_by"] = _mamba_bound(*shape)
-            log(f"mamba_chunk {shape} f32 kernel_ms {r['ms']:.4f} bound_ms "
-                f"{r['bound_ms']:.4f} ({r['bound_by']}) plain_ms "
-                f"{r['plain_ms']:.4f} library_ms none (no single PyTorch "
-                f"call) max_abs_err {r['max_abs_err']:.3e}")
+            ops = _mamba_ops(*shape)
+            log(f"mamba_chunk {shape} f32 kernel_ms {r['ms']:.4f} (device "
+                f"{r['device_ms']:.4f}) bound_ms {r['bound_ms']:.4f} "
+                f"({r['bound_by']}; 3xTF32 operations "
+                f"{3 * ops / TF32_OPS_PER_S * 1e3:.4f}, float32 SIMT "
+                f"{_mamba_bound(*shape, tensor_cores=False)[0]:.4f}) "
+                f"plain_ms {r['plain_ms']:.4f} library_ms none (no single "
+                f"PyTorch call) max_abs_err {r['max_abs_err']:.3e}")
         del args, got, want
         torch.cuda.empty_cache()
 
@@ -1910,8 +2000,13 @@ def main() -> int:
             elif "registers" in line:
                 log(f"  {stem} {entry}: {line.split(':', 1)[-1].strip()}; "
                     f"{spill}")
-    tf32_mma = sass_tf32_mma(build)
-    log(f"flash_attention library SASS: {tf32_mma} TF32 HMMA instructions")
+    tf32_mma = {stem: sass_tf32_mma(build, stem)
+                for stem in ("flash_attention", "mamba_scan")}
+    for stem, n in tf32_mma.items():
+        log(f"{stem} library SASS: {n} TF32 HMMA instructions")
+        if n == 0:
+            fail(f"{stem}: no TF32 HMMA instruction in the library's SASS; "
+                 "the tensor-core path is not the one built")
 
     results = check_kernels(torch, K, ref)
     check_exchange_kernels(torch, exchange_epilogue, results)
@@ -1924,7 +2019,8 @@ def main() -> int:
         ckpt = os.path.join(tmp, "paper-lenet")
         counts, server = main_path(torch, K, exchange_epilogue, ckpt)
         profile_round(torch)
-        check_attention_kernels(torch, results, tf32_mma)
+        check_attention_kernels(torch, results,
+                                tf32_mma["flash_attention"])
         counts.update(serve_path(torch, ckpt, server, tmp))
         serve_reference_check(torch, ckpt, server)
     # neither package's training or serving path reaches the last four
@@ -1948,6 +2044,8 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"]})
+        if "device_ms" in r:
+            kernels[-1]["device_ms"] = r["device_ms"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,11 +4,11 @@ Each ``csrc/<stem>.cu`` exposes ``extern "C"`` launchers that take raw
 device pointers, sizes, scalars and a stream, launch on that stream, and
 return ``cudaGetLastError()``. Each source is compiled on its own into
 ``_build/<stem>-<hash>.so`` for ``sm_90a`` (Hopper); the hash covers the
-source text and the flags, so an edited source gets a fresh build and a
-stale library is never loaded. At first use every missing library is
-compiled at once, one nvcc process per source, and nothing is built when
-a module is imported. ``_build/`` lies inside the package and is listed
-in ``.gitignore``.
+source text, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source or header gets a fresh build and a stale library is never
+loaded. At first use every missing library is compiled at once, one nvcc
+process per source, and nothing is built when a module is imported.
+``_build/`` lies inside the package and is listed in ``.gitignore``.
 
 No ``--use_fast_math``: the kernels keep IEEE division and square root so
 that they agree with the plain PyTorch versions.
@@ -56,11 +56,11 @@ SIGNATURES = {
         "repro_qdq_int8": (_P, _P, _P, _I64, _I64, _I64, _P),
     },
     "decode_attention": {
-        # q, pool, rows_k, rows_v, lengths, out, B, n_kv, g, hd, page_size,
-        # nblk, page_elems, stream, scale
-        "repro_paged_decode_attention": (_P, _P, _P, _P, _P, _P, _I64, _I64,
-                                         _I64, _I64, _I64, _I64, _I64, _P,
-                                         _F),
+        # q, pool, rows_k, rows_v, lengths, out, partials, tickets, B, n_kv,
+        # g, hd, page_size, nblk, page_elems, pages a span, stream, scale
+        "repro_paged_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _P,
+                                         _I64, _I64, _I64, _I64, _I64, _I64,
+                                         _I64, _I64, _P, _F),
     },
     "flash_attention": {
         # q, k, v, out, B, H, KV, S, hd, bf16, stream, scale
@@ -111,7 +111,11 @@ def nvcc() -> str:
 
 
 def library_path(stem: str) -> Path:
-    text = (CSRC / f"{stem}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
+    """The library of ``csrc/<stem>.cu``, named by a hash of its source,
+    the headers of ``csrc/`` (which a source may include) and the flags."""
+    text = b"".join(p.read_bytes() for p in [CSRC / f"{stem}.cu",
+                                             *sorted(CSRC.glob("*.cuh"))])
+    text += " ".join(NVCC_FLAGS).encode()
     return BUILD_DIR / f"{stem}-{hashlib.sha256(text).hexdigest()[:16]}.so"
 
 

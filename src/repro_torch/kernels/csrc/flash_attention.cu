@@ -15,7 +15,8 @@
 // units (67 TFLOP/s) that is ~24 us; this kernel runs the products on the
 // TF32 tensor cores (495 TFLOP/s) three times over (below): ~10 us.
 //
-// Products: mma.sync.m16n8k8 TF32 with the 3xTF32 split. A float32 x is
+// Products: mma.sync.m16n8k8 TF32 with the 3xTF32 split (the helpers are
+// in csrc/tf32_mma.cuh, which mamba_scan.cu shares). A float32 x is
 // hi = cvt.rna.tf32(x) plus lo = cvt.rna.tf32(x - hi), and a.b is taken as
 // hi(a)lo(b) + lo(a)hi(b) + hi(a)hi(b), the small terms accumulated first;
 // only lo(a)lo(b) (~2^-22 relative) is dropped. One TF32 product keeps ~3
@@ -79,6 +80,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "smem.cuh"
+#include "tf32_mma.cuh"
+
 namespace {
 
 constexpr int kWarps = 4;
@@ -103,92 +107,6 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
 }
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo, both TF32
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
-}
-
-// c += a (16 x 8, row) * b (8 x 8, col), TF32 in, float32 accumulate
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d = a (16 x 8, row) * b (8 x 8, col), into a fresh accumulator
-__device__ __forceinline__ void mma_fresh(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.0f));
-}
-
-// c[j] += sum over KS k steps of a_s b_sj, for N outputs j, with the
-// 3xTF32 split of a (ah, al) and of b (split here): every small product
-// (hi.lo, lo.hi) first, then the hi.hi ones, into a fresh accumulator
-// that is added to c by a round-to-nearest float32 add. (The tensor
-// cores' own float32 sums truncate; over a long chain of steps into one
-// accumulator that drifts past the tolerance.) Phase by phase, so that
-// N independent products stand between two dependent ones.
-template <int KS, int N>
-__device__ __forceinline__ void mma3_steps(float (&c)[N][4], const uint32_t (&ah)[KS][4],
-                                           const uint32_t (&al)[KS][4], const float (&b0)[KS][N],
-                                           const float (&b1)[KS][N]) {
-  uint32_t bh[KS][N][2], bl[KS][N][2];
-#pragma unroll
-  for (int s = 0; s < KS; ++s) {
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      split(b0[s][j], bh[s][j][0], bl[s][j][0]);
-      split(b1[s][j], bh[s][j][1], bl[s][j][1]);
-    }
-  }
-  float t[N][4];
-#pragma unroll
-  for (int j = 0; j < N; ++j) mma_fresh(t[j], ah[0], bl[0][j][0], bl[0][j][1]);
-#pragma unroll
-  for (int s = 0; s < KS; ++s) {
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      if (s > 0) mma(t[j], ah[s], bl[s][j][0], bl[s][j][1]);
-      mma(t[j], al[s], bh[s][j][0], bh[s][j][1]);
-    }
-  }
-#pragma unroll
-  for (int s = 0; s < KS; ++s) {
-#pragma unroll
-    for (int j = 0; j < N; ++j) mma(t[j], ah[s], bh[s][j][0], bh[s][j][1]);
-  }
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) c[j][i] += t[j][i];
-  }
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;" ::: "memory");
 }
 
 // A row of hd elements padded by `pad`; a width that is no power of two is
@@ -463,8 +381,8 @@ template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int64_t B, int64_t H,
            int64_t KV, int64_t S, cudaStream_t stream, float scale) {
   constexpr int smem = Smem<T, HD>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static size_t high[kSmemDevices];
+  const cudaError_t err = allow_smem(flash_fwd_kernel<T, HD>, smem, high);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t nq = (S + kRowsQ - 1) / kRowsQ;
   const dim3 grid(static_cast<unsigned>((nq + 1) / 2), static_cast<unsigned>(B * H));

@@ -5,10 +5,13 @@ One decode step's GQA attention for every batch slot against the K and V
 pages of the serve pool (``serve/paging.py``): q (B, H, hd) against pool
 rows ``rows_k[b, j]`` / ``rows_v[b, j]``, masked at each slot's length.
 On a CUDA tensor it launches ``repro_paged_decode_attention``
-(``csrc/decode_attention.cu``); on a CPU tensor it takes
-``ref.paged_decode_attention_ref``. The kernel takes any head dim up to
-``MAX_HEAD_DIM`` and from 1 to ``MAX_GROUP`` query heads per KV head
-(``takes``).
+(``csrc/decode_attention.cu``: each slot's pages cut into spans of
+``span_pages`` pages, one block a span, the last block of a slot merging
+the spans' partials in a fixed order) with its partials and tickets
+scratch, allocated once per (device, stream, size); on a CPU tensor it
+takes ``ref.paged_decode_attention_ref``. The kernel takes any head dim
+up to ``MAX_HEAD_DIM`` and from 1 to ``MAX_GROUP`` query heads per KV
+head (``takes``).
 """
 from __future__ import annotations
 
@@ -16,13 +19,33 @@ import math
 
 import torch
 
-from repro_torch.kernels import build, resolve_impl, stream_of
+from repro_torch.kernels import (build, ptr, resolve_impl, sm_count,
+                                 stream_of)
 from repro_torch.kernels.ref import paged_decode_attention_ref
 
 launches = 0     # kernel launches since the count was last set to 0
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 128
 MAX_GROUP = 16                       # query heads per KV head
+HEADS_A_BLOCK = 8                    # query heads a block (kMaxGB)
+MAX_SPAN_PAGES = 128                 # page-table entries a span (kMaxSpanPages)
+MIN_SPAN_TOKENS = 32                 # tokens a span at least
+BLOCKS_PER_SM = 4                    # blocks the span split aims to keep in flight
+_scratch: dict = {}   # (device index, stream, B, H, hd, S) -> (partials, tickets)
+
+
+def span_pages(B: int, n_kv: int, g: int, nblk: int, page_size: int,
+               sms: int) -> int:
+    """Pages a span: a slot's nblk pages cut into as many spans as keep
+    about ``BLOCKS_PER_SM`` blocks an SM in flight over the grid of B *
+    n_kv * ceil(g / 8) blocks a span (one wave: measured fastest on an
+    H100 at paper-lenet's and qwen3-32b's decode, PERF.md), but no span
+    under ``MIN_SPAN_TOKENS`` tokens and none over ``MAX_SPAN_PAGES``
+    pages; from the shapes alone (the lengths stay on the device)."""
+    blocks = B * n_kv * -(-g // HEADS_A_BLOCK)
+    spans = max(1, BLOCKS_PER_SM * sms // blocks)
+    least = max(1, MIN_SPAN_TOKENS // page_size)
+    return min(MAX_SPAN_PAGES, max(least, -(-nblk // spans)))
 
 
 def takes(hd: int, g: int) -> bool:
@@ -81,10 +104,24 @@ def paged_decode_attention(q, pool, rows_k, rows_v, lengths, *,
     rows_k, rows_v = rows_k.contiguous(), rows_v.contiguous()
     lengths = lengths.contiguous()
     out = torch.empty_like(qf)
+    nblk = rows_k.shape[1]
+    pps = span_pages(B, n_kv, H // n_kv, nblk, page_size,
+                     sm_count(q.device.index))
+    spans = max(1, -(-nblk // pps))
+    stream = stream_of(q)
+    partials = tickets = None
+    if spans > 1:
+        key = (q.device.index, stream, B, H, hd, spans)
+        if key not in _scratch:
+            _scratch[key] = (
+                torch.empty((B * H * spans * (hd + 2),), dtype=torch.float32,
+                            device=q.device),
+                torch.zeros((B * H,), dtype=torch.int32, device=q.device))
+        partials, tickets = _scratch[key]
     build.launch("decode_attention", "repro_paged_decode_attention",
                  qf.data_ptr(), pool.data_ptr(), rows_k.data_ptr(),
-                 rows_v.data_ptr(), lengths.data_ptr(), out.data_ptr(), B,
-                 n_kv, H // n_kv, hd, page_size, rows_k.shape[1],
-                 pool.shape[1], stream_of(q), scale)
+                 rows_v.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                 ptr(partials), ptr(tickets), B, n_kv, H // n_kv, hd,
+                 page_size, nblk, pool.shape[1], pps, stream, scale)
     launches += 1
     return out.to(q.dtype)

@@ -4,11 +4,14 @@
 For every (batch, chunk, head): the inclusive cumsum of dt*a, the causal
 decay weights, ``(C B^T * W) x``, the chunk's summarized state and its
 decay. On a CUDA tensor it launches ``repro_mamba_chunk``
-(``csrc/mamba_scan.cu``, one block per (batch*chunk, head)); on a CPU
-tensor it takes ``ref.mamba_chunk_ref``. Neither package has a backward
-for it, so an input that requires a gradient is refused. No model path
-of either package calls it: the reference's ``mamba_forward`` computes
-the intra-chunk product in jnp.
+(``csrc/mamba_scan.cu``: one block per (batch*chunk, group of up to four
+heads), C B^T once a block, the three products on the TF32 tensor cores
+with the 3xTF32 split); on a CPU tensor it takes ``ref.mamba_chunk_ref``.
+The kernel takes chunks of up to ``MAX_CHUNK`` steps (the reference's
+configs use 128) and any N and P whose tiles fit one block's shared
+memory. Neither package has a backward for it, so an input that requires
+a gradient is refused. No model path of either package calls it: the
+reference's ``mamba_forward`` computes the intra-chunk product in jnp.
 """
 from __future__ import annotations
 
@@ -19,17 +22,29 @@ from repro_torch.kernels.ref import mamba_chunk_ref
 
 launches = 0     # kernel launches since the count was last set to 0
 MAX_SMEM = 232_448       # bytes of shared memory a block may have (227 KB)
+MAX_CHUNK = 128          # steps a chunk: 8 row tiles of 16 (kMaxL)
+HEADS_A_BLOCK = 4        # kHeads
+CB_BYTES = 36_864        # C B^T's causal blocks: 4 pairs x 9 x 2 x 32 float4
 
 
-def smem_bytes(L: int, N: int, P: int) -> int:
-    """The kernel's dynamic shared memory (``Geometry::smem_bytes``): B
-    and C transposed to (N, L + 4), x of a head in C's place, the causal
-    32 x 32 tiles of the weights and three (L,) vectors, each length
-    padded (L to 32, N to 4, P to 8)."""
-    lp, np_, pp = -(-L // 32) * 32, -(-N // 4) * 4, -(-P // 8) * 8
-    ls, tr = lp + 4, lp // 32
-    return 4 * (np_ * ls + max(np_ * ls, lp * pp) + tr * (tr + 1) // 2 * 1024
-                + 3 * lp)
+def _up(x: int, to: int) -> int:
+    return -(-x // to) * to
+
+
+def smem_bytes(L: int, N: int, P: int, itemsize: int = 4) -> int:
+    """The kernel's dynamic shared memory (``Geometry::bytes``): B, then
+    C (x in its place once C B^T is done), each (L, row) with L padded to
+    16 and rows padded to 4 floats past a multiple of 32 (8 elements for
+    bfloat16 x), C B^T's causal blocks, cum, dt and the state weights of
+    four heads, and the current head's factors of the weights W (row
+    factors of the blocks below the diagonal, column factors, a flag a
+    head)."""
+    lp, sn = _up(L, 16), _up(N, 32) + 4
+    sx = _up(P, 32) + (4 if itemsize == 4 else 8)
+    b, x = 4 * lp * sn, itemsize * lp * sx
+    tiles = lp // 16
+    return (b + max(b, x) + CB_BYTES + 3 * 4 * HEADS_A_BLOCK * lp
+            + 4 * (8 * tiles * (tiles - 1) + lp + HEADS_A_BLOCK))
 
 
 def mamba_chunk(xh, bmat, cmat, dt, a, *, impl="auto"):
@@ -61,11 +76,12 @@ def mamba_chunk(xh, bmat, cmat, dt, a, *, impl="auto"):
             "backward")
     if resolve_impl(impl, xh.device) == "torch":
         return mamba_chunk_ref(xh, bmat, cmat, dt, a)
-    if smem_bytes(L, N, P) > MAX_SMEM:
+    need = smem_bytes(L, N, P, xh.element_size())
+    if L > MAX_CHUNK or need > MAX_SMEM:
         raise ValueError(
-            f"mamba_chunk: chunk {L}, state {N} and head_dim {P} need "
-            f"{smem_bytes(L, N, P)} bytes of shared memory a block; the "
-            f"kernel has {MAX_SMEM}")
+            f"mamba_chunk: the kernel takes chunks of up to {MAX_CHUNK} "
+            f"steps within {MAX_SMEM} bytes of shared memory a block; chunk "
+            f"{L}, state {N} and head_dim {P} need {need}")
     xh, bmat, cmat, dt, a = (t.contiguous() for t in (xh, bmat, cmat, dt, a))
     f32 = dict(dtype=torch.float32, device=xh.device)
     y = torch.empty_like(xh)

@@ -122,9 +122,13 @@ def test_mamba_chunk_is_forward_only_and_checks_its_inputs():
 
 
 def test_shared_memory_of_the_kernel():
-    """zamba2-7b's tile (L 128, N 64, P 64) fits two blocks an SM; the
-    wrapper finds a tile too large for one block (and refuses it on the
-    card) by the kernel's own count."""
-    assert mamba_scan.smem_bytes(128, 64, 64) == 110_080
+    """zamba2-7b's tile (L 128, N 64, P 64) fits two blocks an SM, in
+    float32 and bfloat16; the wrapper finds a tile too large for one block
+    (and refuses it on the card) by the kernel's own count, and refuses a
+    chunk longer than the kernel's 8 row tiles of 16."""
+    assert mamba_scan.smem_bytes(128, 64, 64) == 114_960
+    assert mamba_scan.smem_bytes(128, 64, 64, 2) <= 114_960
     assert 2 * (mamba_scan.smem_bytes(128, 64, 64) + 1024) <= 228 * 1024
     assert mamba_scan.smem_bytes(256, 128, 128) > mamba_scan.MAX_SMEM
+    assert mamba_scan.smem_bytes(128, 128, 128) <= mamba_scan.MAX_SMEM
+    assert mamba_scan.MAX_CHUNK == 128
