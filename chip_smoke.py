@@ -155,8 +155,40 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``sq_norm`` is its one-row case; the exchange kernels, which ``ops``
    does not front, not at all).
 
+11. the paper's T_i = inf mode, its convex experiments and the sync-DP
+   baseline, through the port's entry points on the card. The convex
+   suite through ``repro_torch.core.reference.run_alg1`` at each figure's
+   own settings (the ``FIG*`` constants, each naming its source line in
+   ``benchmarks/``; no cut): Fig 2a, 2b, 3, 5 (with the decay fit and the
+   T* formulas) and 6-7, each figure's own ``pass`` expression required,
+   its integer quantities, slopes, rates and wall time printed; Fig 5's
+   quartic threshold run also with the stopping test read every
+   ``CHECK_EVERY`` steps (the same counts required, both times logged);
+   Fig 2b's T=10 and threshold runs over 5 rounds on the card against
+   the CPU (gsq rtol 1e-4, inner counts equal). Fig 4 on the pytree round
+   (paper-mlp at full config, G 4, 4 sequences of 64 a group, sgd, 10
+   rounds; T 1, 10, 50 and threshold 3e-2 with ``max_inner`` 100), its
+   ``pass`` expression required. Threshold mode at full width
+   (paper-lenet, G 4, 2 sequences of 128 a group, sgd, 2 rounds, eps
+   ``LENET_EPS``): counts within the cap, a group that stopped early at
+   grad_sq <= eps, two groups at different counts below the cap in round
+   1, the wire bytes worked out from the shapes; its fenced time and peak
+   memory logged. The pytree round against the packed round at full
+   width (sgd, T 4, server/fp32, the same params): server params within
+   atol 1e-6. The packed sync step (paper-lenet, 8 x 128 tokens): sgd and
+   momentum one step, adamw three, each launching its update kernel and
+   ``sq_norm_groups`` once a step (the counts set to 0 before each), the
+   pytree adamw step beside it agreeing after one step (rtol 1e-5 / atol
+   1e-6). None of the convex, Fig 4, threshold or pytree runs launches a
+   kernel. One threshold round and one sync step under ``torch.profiler``.
+   Then ``python -m repro_torch.launch.train`` at paper-mlp's full config
+   with ``--mode sync --packed``, ``--threshold 3e-2`` (pytree) and
+   ``--packed --adaptive-t --t-inner 4 --lr 0.02`` (its second round at
+   the controller's T) must each exit 0.
+
 The line before the last is one JSON object with each kernel's numbers
-(the launches of phases 5 and 8 for the first eight, of phase 10's
+(the launches of phases 5 and 8 for the first eight, plus phase 11's
+sync steps for the update kernels and ``sq_norm_groups``, of phase 10's
 ``ops`` path for the last four; ``paged_decode_attention`` and
 ``mamba_chunk`` also carry ``device_ms``, the device's time alone at the
 shape of their ``ms``); the last line is ``{"ok": true, "device":
@@ -887,7 +919,7 @@ def main_path(torch, K, ee, ckpt):
                                      "staleness") if k in run}
         tag = f"{opt} {flags or 'server/fp32'}"
         torch.cuda.reset_peak_memory_stats()
-        cfg, _, layout, rnd, state = build_run(
+        cfg, _, layout, rnd, state, *_ = build_run(
             "paper-lenet", groups=G, t_inner=T, opt=opt, lr=run["lr"],
             metrics=metrics, seed=0, device="cuda", **flags)
         if layout.size != MAIN[1]:
@@ -990,9 +1022,9 @@ def profile_round(torch):
     from repro_torch.data.synthetic import TokenPipeline
     from repro_torch.launch.train import build_run
 
-    cfg, _, _, rnd, state = build_run("paper-lenet", groups=4, t_inner=4,
-                                      opt="adamw", lr=1e-3, seed=0,
-                                      device="cuda")
+    cfg, _, _, rnd, state, *_ = build_run("paper-lenet", groups=4,
+                                          t_inner=4, opt="adamw", lr=1e-3,
+                                          seed=0, device="cuda")
     tokens = next(TokenPipeline(cfg.vocab_size, 128, seed=0).batches(
         (4, 2)))["tokens"]
     batch = {"tokens": torch.as_tensor(tokens, device="cuda")}
@@ -1942,6 +1974,558 @@ def ops_path(torch):
     return {name: got[name] for name in LAST_FOUR}
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the paper's T_i = inf mode, its convex experiments and the
+# sync-DP baseline
+# ---------------------------------------------------------------------------
+# Each figure's settings, copied from its driver in benchmarks/:
+# fig2a_feasibility.py:15-18
+FIG2A = dict(w0=(1.5, 0.8), lr=0.4, T=10, rounds=2000)
+# fig2b_linear_rate.py:14-28
+FIG2B = dict(n=62, d=2000, m=2, lr=2.0, Ts=(1, 10, 100), eps=1e-8,
+             rounds=150, tol=1e-7)
+# fig3_intersection.py:41-55
+FIG3 = dict(n=500, side=28, m=10, T=100, lr=0.5, rounds=40)
+# fig5_quartic.py:19-36
+FIG5 = dict(n=20, d=400, m=2, w0=0.3, Ts=(10, 100, 1000), eps=1e-8,
+            rounds=12, cases=(("quadratic", 1, 1.0), ("quartic", 2, 0.5)))
+# fig67_nodes.py:13-18
+FIG67 = dict(n=60, d=1200, ms=(2, 5, 10), lr=2.0, T=100, rounds=40)
+# fig4_deepnet.py:22-34, 37-50
+FIG4 = dict(G=4, per_group=4, seq=64, lr=0.05, rounds=10, Ts=(1, 10, 50),
+            threshold=3e-2, max_inner=100)
+# the host-read interval measured against a read after every step, on
+# Fig 5's quartic threshold run
+CHECK_EVERY = 32
+# full-width threshold mode: paper-lenet, G 4, 2 sequences of 128 a group,
+# sgd. eps is chosen from the groups' |g(w_t)|^2 over 30 fixed steps of
+# round 1 (PERF.md §6, PR 18, run 1: 74-78 at w_0, 24.0 and 24.6 at w_1
+# for groups 0 and 2, 26.5 and 27.1 for groups 3 and 1, 17-21 at w_2):
+# groups 0 and 2 stop after 2 steps, 1 and 3 after 3
+LENET_EPS = 25.5
+LENET_MAX_INNER = 30
+CONVEX_RTOL = 1e-4           # card against CPU on Fig 2b's prefix
+
+
+def _zero_update_counts(K):
+    for m in (K.fused_sgd, K.fused_momentum, K.fused_adamw, K.sq_norm):
+        m.launches = 0
+
+
+def _update_counts(K):
+    return {"fused_sgd": K.fused_sgd.launches,
+            "fused_momentum": K.fused_momentum.launches,
+            "fused_adamw": K.fused_adamw.launches,
+            "sq_norm_groups": K.sq_norm.launches}
+
+
+def _timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def fig2a(torch, run_alg1, convex, np):
+    c = FIG2A
+    out, s = _timed(torch, lambda: run_alg1(
+        convex.beck_teboulle_losses(), torch.tensor(c["w0"]), lr=c["lr"],
+        T=c["T"], rounds=c["rounds"], device="cuda"))
+    gsq = np.asarray(out["gsq"])
+    n = np.arange(1, c["rounds"] + 1)
+    tail = slice(c["rounds"] // 10, None)
+    slope = float(np.polyfit(np.log(n[tail]), np.log(gsq[tail]), 1)[0])
+    ok = bool(slope < -0.5 and gsq[-1] < 1e-6)
+    log(f"fig2a: {c['rounds']} rounds T {c['T']} in {s:.2f} s; log-log slope "
+        f"{slope:.4f}, gsq first {gsq[0]:.4e} last {gsq[-1]:.4e}, final x "
+        f"{out['w'].tolist()}; pass {ok}")
+    return ok, s
+
+
+def fig2b(torch, run_alg1, rounds_to, convex, np):
+    c = FIG2B
+    prob = convex.make_overparam_regression(n=c["n"], d=c["d"], m=c["m"],
+                                            seed=0)
+    losses = prob.local_losses("cuda")
+    w0 = torch.zeros(c["d"])
+    rt, r2, s_all = {}, {}, 0.0
+    runs = [(f"T={T}", T, None) for T in c["Ts"]] + [("T=inf", None,
+                                                      c["eps"])]
+    for label, T, thr in runs:
+        out, s = _timed(torch, lambda: run_alg1(
+            losses, w0, lr=c["lr"], T=T, rounds=c["rounds"], threshold=thr,
+            stop_below=c["tol"] * 1e-6, device="cuda"))
+        s_all += s
+        gsq = np.asarray(out["gsq"])
+        rt[label] = rounds_to(gsq, c["tol"])
+        above = np.nonzero(gsq <= c["tol"])[0]
+        k = max(int(above[0]) + 1 if above.size else len(gsq), 3)
+        y, x = np.log(gsq[:k]), np.arange(k)
+        cf = np.polyfit(x, y, 1)
+        r2[label] = float(1 - np.sum((y - np.polyval(cf, x)) ** 2)
+                          / max(np.sum((y - y.mean()) ** 2), 1e-30))
+        inner = (f", inner steps {sum(map(sum, out['inner']))} over "
+                 f"{len(out['inner'])} rounds, first rounds "
+                 f"{out['inner'][:3]}" if thr else "")
+        log(f"fig2b {label}: {len(gsq)} rounds in {s:.2f} s, rounds to "
+            f"{c['tol']} {rt[label]}, linear r2 {r2[label]:.4f}{inner}")
+    R = c["rounds"]
+    mono = ((rt["T=100"] or R) <= (rt["T=10"] or R) <= (rt["T=1"] or R)
+            and (rt["T=inf"] or R) <= (rt["T=100"] or R) + 2)
+    ok = bool(mono and all(v and v > 0.9 for v in r2.values()))
+    log(f"fig2b: rounds_to {rt}; pass {ok}")
+    return ok, s_all
+
+
+def fig2b_prefix_parity(torch, run_alg1, convex, np):
+    """Fig 2b's T=10 and threshold runs, 5 rounds, on the card and on the
+    CPU: gsq within CONVEX_RTOL and the inner counts equal."""
+    c = FIG2B
+    prob = convex.make_overparam_regression(n=c["n"], d=c["d"], m=c["m"],
+                                            seed=0)
+    for T, thr in ((10, None), (None, c["eps"])):
+        outs = [run_alg1(prob.local_losses(dev), torch.zeros(c["d"]),
+                         lr=c["lr"], T=T, rounds=5, threshold=thr,
+                         device=dev) for dev in ("cuda", "cpu")]
+        gc, gh = np.asarray(outs[0]["gsq"]), np.asarray(outs[1]["gsq"])
+        err = float(np.max(np.abs(gc / gh - 1)))
+        if err > CONVEX_RTOL or outs[0]["inner"] != outs[1]["inner"]:
+            fail(f"fig2b prefix T={T} threshold={thr}: card and CPU differ "
+                 f"(gsq rel err {err:.3e}, inner {outs[0]['inner']} vs "
+                 f"{outs[1]['inner']})")
+        log(f"fig2b prefix T={T} threshold={thr}: card = CPU over 5 rounds "
+            f"(gsq max rel err {err:.3e}, inner {outs[0]['inner']})")
+
+
+def fig3(torch, run_alg1, convex, synthetic, np):
+    c = FIG3
+    x, labels = synthetic.gaussian_classification(n=c["n"], side=c["side"],
+                                                  seed=0)
+    x = x / np.abs(x).max()
+    cases = {"intersected": x,
+             "non_intersected": synthetic.maxpool2x2_twice(x)}
+    res, s_all = {}, 0.0
+    for name, xc in cases.items():
+        losses_m, dim = convex.affine_softmax_losses(xc, labels, c["m"],
+                                                     device="cuda")
+        losses_1, _ = convex.affine_softmax_losses(xc, labels, 1,
+                                                   device="cuda")
+        outs = []
+        for losses in (losses_m, losses_1):
+            out, s = _timed(torch, lambda: run_alg1(
+                losses, torch.zeros(dim), lr=c["lr"], T=c["T"],
+                rounds=c["rounds"], device="cuda"))
+            outs.append(out)
+            s_all += s
+        res[name] = {"gsq_10node": outs[0]["gsq"][-1],
+                     "gsq_1node": outs[1]["gsq"][-1],
+                     "gap": outs[0]["f"][-1] - outs[1]["f"][-1]}
+        log(f"fig3 {name}: {dim} params; {c['m']}-node gsq "
+            f"{res[name]['gsq_10node']:.4e}, 1-node gsq "
+            f"{res[name]['gsq_1node']:.4e}, f gap vs centralized "
+            f"{res[name]['gap']:.4e}")
+    inter, non = res["intersected"], res["non_intersected"]
+    ok = bool(inter["gap"] < 1e-3
+              and non["gap"] > 100 * max(inter["gap"], 1e-6)
+              and inter["gsq_10node"] < 1e-4)
+    log(f"fig3: {s_all:.2f} s; pass {ok}")
+    return ok, s_all
+
+
+def fig5(torch, run_alg1, rounds_to, convex, theory, np):
+    c = FIG5
+    cases, s_all = {}, 0.0
+    for name, power, lr in c["cases"]:
+        prob = convex.make_overparam_regression(n=c["n"], d=c["d"],
+                                                m=c["m"], power=power, seed=0)
+        losses = prob.local_losses("cuda")
+        w0 = torch.ones(c["d"]) * c["w0"]
+        final, r2t = {}, {}
+        runs = [(f"T={T}", T, None) for T in c["Ts"]] + [
+            ("threshold", None, c["eps"])]
+        for label, T, thr in runs:
+            out, s = _timed(torch, lambda: run_alg1(
+                losses, w0, lr=lr, T=T, rounds=c["rounds"], threshold=thr,
+                record_local_traj=(label == "T=1000"), device="cuda"))
+            s_all += s
+            final[label] = out["gsq"][-1]
+            r2t[label] = rounds_to(out["gsq"], 1e-6)
+            if label == "T=1000":
+                traj = np.asarray(out["local_traj"][:1000])
+            extra = ""
+            if thr:
+                extra = (f", inner steps {sum(map(sum, out['inner']))}: "
+                         f"{out['inner']}")
+                if name == "quartic":
+                    # the host-read interval: every step against every
+                    # CHECK_EVERY steps (masked on the device between)
+                    out_k, s_k = _timed(torch, lambda: run_alg1(
+                        losses, w0, lr=lr, T=None, rounds=c["rounds"],
+                        threshold=thr, device="cuda",
+                        check_every=CHECK_EVERY))
+                    if out_k["inner"] != out["inner"]:
+                        fail(f"fig5 quartic: check_every={CHECK_EVERY} "
+                             f"counts {out_k['inner']} differ from "
+                             f"{out['inner']}")
+                    extra += (f"; check_every 1 {s:.2f} s, check_every "
+                              f"{CHECK_EVERY} {s_k:.2f} s (same counts)")
+            log(f"fig5 {name} {label}: {s:.2f} s, final gsq "
+                f"{final[label]:.4e}, rounds to 1e-6 {r2t[label]}{extra}")
+        traj = traj[traj > traj[0] * 1e-10][:200]
+        fit = theory.fit_decay(traj)
+        cases[name] = {"final": final, "fit": fit}
+        log(f"fig5 {name}: decay fit {fit}")
+    r = 0.01
+    h_lin = lambda t: 0.9 ** t
+    h_sub = lambda t: (1 + 2.0 * t) ** -1.5
+    t_lin = theory.t_star_linear(0.9, r)
+    t_sub = theory.t_star_sublinear(2.0, 1.5, r)
+    lin_ratio = theory.cost_bound(max(int(round(t_lin)), 1), r, h_lin) / \
+        theory.cost_bound(theory.t_star_numeric(r, h_lin), r, h_lin)
+    sub_ratio = theory.cost_bound(max(int(round(t_sub)), 1), r, h_sub) / \
+        theory.cost_bound(theory.t_star_numeric(r, h_sub), r, h_sub)
+    quad, quar = cases["quadratic"], cases["quartic"]
+    ok = bool(quad["fit"] is not None and quar["fit"] is not None
+              and quad["fit"].kind == "linear"
+              and quar["fit"].kind == "sublinear"
+              and quar["final"]["T=1000"] < 0.5 * quar["final"]["T=100"]
+              and lin_ratio <= 1.1 and sub_ratio <= 1.15)
+    log(f"fig5: T* linear {t_lin:.3f} (cost ratio {lin_ratio:.4f}), "
+        f"sublinear {t_sub:.3f} (cost ratio {sub_ratio:.4f}); {s_all:.2f} s;"
+        f" pass {ok}")
+    return ok, s_all
+
+
+def fig67(torch, run_alg1, rounds_to, convex, np):
+    c = FIG67
+    rates, s_all = [], 0.0
+    for m in c["ms"]:
+        prob = convex.make_overparam_regression(n=c["n"], d=c["d"], m=m,
+                                                seed=0)
+        out, s = _timed(torch, lambda: run_alg1(
+            prob.local_losses("cuda"), torch.zeros(c["d"]), lr=c["lr"],
+            T=c["T"], rounds=c["rounds"], device="cuda"))
+        s_all += s
+        gsq = np.asarray(out["gsq"])
+        rates.append(float((gsq[-1] / gsq[0]) ** (1.0 / (len(gsq) - 1))))
+        log(f"fig67 m={m}: {s:.2f} s, final gsq {gsq[-1]:.4e}, rounds to "
+            f"1e-9 {rounds_to(gsq, 1e-9)}, rate {rates[-1]:.6f}")
+    ok = bool(rates[0] < rates[1] < rates[2])
+    log(f"fig67: rates {rates}; pass {ok}")
+    return ok, s_all
+
+
+def convex_suite(torch):
+    """Phase 11, part 1: the convex figures through run_alg1 on the card."""
+    import numpy as np
+
+    from repro_torch.core import theory
+    from repro_torch.core.reference import rounds_to, run_alg1
+    from repro_torch.data import convex, synthetic
+
+    fig2b_prefix_parity(torch, run_alg1, convex, np)
+    prob = convex.make_overparam_regression(n=FIG2B["n"], d=FIG2B["d"],
+                                            m=FIG2B["m"], seed=0)
+    _profiled(torch, "convex: fig2b T=10, 5 rounds", lambda: run_alg1(
+        prob.local_losses("cuda"), torch.zeros(FIG2B["d"]), lr=FIG2B["lr"],
+        T=10, rounds=5, device="cuda"))
+    _profiled(torch, "convex: fig2b threshold, 5 rounds", lambda: run_alg1(
+        prob.local_losses("cuda"), torch.zeros(FIG2B["d"]), lr=FIG2B["lr"],
+        T=None, rounds=5, threshold=FIG2B["eps"], device="cuda"))
+    results = {
+        "2a": fig2a(torch, run_alg1, convex, np),
+        "2b": fig2b(torch, run_alg1, rounds_to, convex, np),
+        "3": fig3(torch, run_alg1, convex, synthetic, np),
+        "5": fig5(torch, run_alg1, rounds_to, convex, theory, np),
+        "6-7": fig67(torch, run_alg1, rounds_to, convex, np)}
+    log("convex suite wall s: " + ", ".join(
+        f"fig{k} {s:.2f}" for k, (_, s) in results.items()))
+    failed = [k for k, (ok, _) in results.items() if not ok]
+    if failed:
+        fail(f"convex suite: the pass expression of fig {failed} is false")
+
+
+def fig4(torch, K):
+    """Phase 11, part 2: Fig 4 on the pytree round, paper-mlp at full
+    config. Launches no kernel."""
+    from repro_torch import optim
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import localsgd as lsgd
+    from repro_torch.data.synthetic import fixed_group_batches
+    from repro_torch.models.api import build_model
+
+    c = FIG4
+    cfg = get_config("paper-mlp")
+    model = build_model(cfg, schedule="rect")
+    params0 = model.init(torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    batch = {"tokens": torch.as_tensor(fixed_group_batches(
+        cfg.vocab_size, c["seq"], c["G"], c["per_group"], seed=0)["tokens"],
+        device="cuda")}
+    final, before = {}, _update_counts(K)
+    runs = [(f"T={T}", T, None) for T in c["Ts"]] + [
+        ("threshold", None, c["threshold"])]
+    for label, T, thr in runs:
+        opt = optim.sgd(c["lr"])
+        rnd = lsgd.make_local_round(model.loss, opt, lsgd.LocalSGDConfig(
+            n_groups=c["G"], inner_steps=T or 1, threshold=thr,
+            max_inner=c["max_inner"]))
+        state = lsgd.init_state(params0, opt, n_groups=c["G"])
+        losses, inners = [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(c["rounds"]):
+            state, m = rnd(state, batch)
+            losses.append(float(m["loss"].mean()))
+            inners.append(m["inner_steps"].tolist())
+        s = time.perf_counter() - t0
+        final[label] = losses[-1]
+        log(f"fig4 {label}: {c['rounds']} rounds in {s:.2f} s, loss "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f}"
+            + (f", inner steps {inners}" if thr else ""))
+    if _update_counts(K) != before:
+        fail("fig4: the pytree round launched a kernel")
+    ok = (final["T=50"] < final["T=10"] < final["T=1"]
+          and final["threshold"] < final["T=1"])
+    log(f"fig4: final losses {final}; pass {ok}")
+    if not ok:
+        fail("fig4: the pass expression is false")
+
+
+def _lenet(torch):
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.api import build_model
+    cfg = get_config("paper-lenet")
+    model = build_model(cfg, schedule="rect")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    return cfg, model, params
+
+
+def _profiled(torch, label, fn):
+    """Run ``fn`` once under torch.profiler: the device's busy share of the
+    fenced call and its device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        log(f"profile {label}: the profiler captured no device time")
+        return
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    log(f"profile {label}: {wall_ms:.1f} ms fenced (profiler on), device "
+        f"busy {busy_ms:.2f} ms = {busy_ms / wall_ms:.1%}, "
+        f"{sum(e.count for e in kernels)} kernel launches")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"profile:   {e.self_device_time_total / 1e3:8.2f} ms "
+            f"x{e.count:<5d} {e.key[:100]}")
+
+
+def lenet_threshold(torch, K):
+    """Phase 11, part 3: threshold mode at full width (paper-lenet, G 4, 2
+    sequences of 128 a group, sgd, 2 rounds), on the pytree round."""
+    from repro_torch import optim, tree
+    from repro_torch.core import localsgd as lsgd
+    from repro_torch.data.synthetic import TokenPipeline
+
+    cfg, model, params = _lenet(torch)
+    G, opt = 4, optim.sgd(0.05)
+    tokens = next(TokenPipeline(cfg.vocab_size, 128, seed=0).batches(
+        (G, 2)))["tokens"]
+    batch = {"tokens": torch.as_tensor(tokens, device="cuda")}
+    n = sum(x.numel() for x in tree.leaves(params))
+    rnd = lsgd.make_local_round(model.loss, opt, lsgd.LocalSGDConfig(
+        n_groups=G, inner_steps=1, threshold=LENET_EPS,
+        max_inner=LENET_MAX_INNER))
+    state = lsgd.init_state(params, opt, n_groups=G)
+    before = _update_counts(K)
+    wire = 2 * G * 4 * n          # server/fp32: G pushes and G replies
+    for r in range(2):
+        torch.cuda.reset_peak_memory_stats()
+        (state, m), s = _timed(torch, lambda: rnd(state, batch))
+        steps, gsq = m["inner_steps"].tolist(), m["grad_sq"].tolist()
+        log(f"lenet threshold round {r}: inner steps {steps}, grad_sq "
+            + " ".join(f"{v:.4e}" for v in gsq) + f", {s:.3f} s fenced, "
+            f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+            f"wire {int(m['wire_bytes']):,} B")
+        if any(t > LENET_MAX_INNER for t in steps):
+            fail(f"lenet threshold: inner steps {steps} past the cap")
+        for t, v in zip(steps, gsq):
+            if t < LENET_MAX_INNER and v > LENET_EPS:
+                fail(f"lenet threshold: a group stopped at {t} steps with "
+                     f"grad_sq {v} > eps {LENET_EPS}")
+        if int(m["wire_bytes"]) != wire:
+            fail(f"lenet threshold: wire {int(m['wire_bytes'])} != {wire}")
+        if r == 0 and len({t for t in steps if t < LENET_MAX_INNER}) < 2:
+            fail(f"lenet threshold: counts {steps}; eps {LENET_EPS} should "
+                 "stop two groups at different counts below the cap")
+    if _update_counts(K) != before:
+        fail("lenet threshold: the pytree round launched a kernel")
+    # round 0 again, from the same start (10 local steps): the profiler's
+    # own processing grows with the launches it records
+    state = lsgd.init_state(params, opt, n_groups=G)
+    _profiled(torch, "threshold round 0 (paper-lenet)",
+              lambda: rnd(state, batch))
+
+
+def pytree_vs_packed(torch):
+    """Phase 11, part 4: the pytree round against the packed round at full
+    width (paper-lenet, sgd, T 4, server/fp32) from the same params."""
+    from repro_torch import optim, tree
+    from repro_torch.core import localsgd as lsgd
+    from repro_torch.data.synthetic import TokenPipeline
+    from repro_torch.optim import packing
+
+    cfg, model, params = _lenet(torch)
+    G = 4
+    tokens = next(TokenPipeline(cfg.vocab_size, 128, seed=0).batches(
+        (G, 2)))["tokens"]
+    batch = {"tokens": torch.as_tensor(tokens, device="cuda")}
+    lcfg = lsgd.LocalSGDConfig(n_groups=G, inner_steps=4)
+    layout = packing.layout_of(params)
+    popt = optim.packed("sgd", 0.05)
+    prnd = lsgd.make_local_round(model.loss, popt, lcfg, layout=layout)
+    (pst, _), ps = _timed(torch, lambda: prnd(
+        lsgd.init_state(params, popt, G, layout), batch))
+    packed_server = tree.leaves(lsgd.server_params(pst, layout))
+    del pst
+    topt = optim.sgd(0.05)
+    trnd = lsgd.make_local_round(model.loss, topt, lcfg)
+    (tst, _), ts = _timed(torch, lambda: trnd(
+        lsgd.init_state(params, topt, G), batch))
+    err = max(float((a - b).abs().max()) for a, b in zip(
+        tree.leaves(lsgd.server_params(tst)), packed_server))
+    log(f"pytree vs packed round (paper-lenet, sgd, T 4): server params max "
+        f"abs diff {err:.3e}; pytree {ts:.3f} s, packed {ps:.3f} s fenced")
+    if err > 1e-6:
+        fail(f"pytree and packed rounds differ by {err:.3e} > 1e-6")
+
+
+def sync_baseline(torch, K):
+    """Phase 11, part 5: the sync-DP baseline at full width. Returns the
+    packed sync steps' launches (counts set to 0 just before them)."""
+    from repro_torch import optim
+    from repro_torch.core import localsgd as lsgd
+    from repro_torch.data.synthetic import TokenPipeline
+    from repro_torch.optim import packing
+
+    cfg, model, params = _lenet(torch)
+    tokens = next(TokenPipeline(cfg.vocab_size, 128, seed=0).batches(
+        (8,)))["tokens"]
+    batch = {"tokens": torch.as_tensor(tokens, device="cuda")}
+    layout = packing.layout_of(params)
+    # the pytree step first, from the same params, beside the packed one
+    topt = optim.adamw(1e-3)
+    tstep = lsgd.make_sync_step(model.loss, topt)
+    before = _update_counts(K)
+    (tst, tm), ts = _timed(torch, lambda: tstep(
+        lsgd.init_state(params, topt), batch))
+    if _update_counts(K) != before:
+        fail("sync: the pytree step launched a kernel")
+    tree_buf = packing.pack(tst["params"], layout)
+    del tst
+    counts = {}
+    for name, steps in (("sgd", 1), ("momentum", 1), ("adamw", 3)):
+        popt = optim.packed(name, 1e-3 if name == "adamw" else 0.05)
+        pstep = lsgd.make_sync_step(model.loss, popt, layout=layout)
+        pst = lsgd.init_state(params, popt, layout=layout)
+        _zero_update_counts(K)
+        for i in range(steps):
+            (pst, pm), s = _timed(torch, lambda: pstep(pst, batch))
+            if name == "adamw":
+                log(f"sync step {i} (packed adamw, paper-lenet, batch 8 x "
+                    f"128): loss {float(pm['loss']):.4f} gsq "
+                    f"{float(pm['grad_sq']):.4e}, {s:.3f} s fenced")
+                if i == 0:
+                    diff = (pst["params"] - tree_buf).abs()
+                    err = float(diff.max())
+                    if bool((diff > 1e-6 + 1e-5 * tree_buf.abs()).any()):
+                        fail(f"sync: the packed and pytree adamw steps "
+                             f"differ (max abs err {err:.3e})")
+                    log(f"sync: packed and pytree adamw steps agree (max abs "
+                        f"err {err:.3e}; pytree step {ts:.3f} s, loss "
+                        f"{float(tm['loss']):.4f})")
+        got = _update_counts(K)
+        want = {"fused_sgd": 0, "fused_momentum": 0, "fused_adamw": 0,
+                "sq_norm_groups": steps}
+        want["fused_" + name] = steps
+        if got != want:
+            fail(f"sync {name}: launches {got}, expected {want}")
+        for k, v in got.items():
+            counts[k] = counts.get(k, 0) + v
+    log(f"sync steps launched {counts}")
+    _profiled(torch, "sync step (packed adamw, paper-lenet)",
+              lambda: pstep(pst, batch))
+    return counts
+
+
+def launcher_runs(torch):
+    """Phase 11, part 6: the train launcher's new modes at paper-mlp's full
+    config, as a user runs them; each must exit 0."""
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+            "paper-mlp", "--rounds", "2"]
+    runs = {"sync": ["--mode", "sync", "--packed"],
+            "threshold": ["--threshold", "3e-2"],
+            # at lr 0.02 a group's ||g||^2 decays over the round and the
+            # Sec-4 fit finds its order; at the default 0.05 it grows, and
+            # the controller asks for its cap, T = 10,000 (PR 18 run 1)
+            "adaptive": ["--packed", "--adaptive-t", "--t-inner", "4",
+                         "--lr", "0.02"]}
+    env = dict(os.environ, PYTHONPATH=SRC)
+    procs = {k: subprocess.Popen(base + v, cwd=ROOT, env=env,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+             for k, v in runs.items()}
+    outs = {}
+    try:
+        for k, p in procs.items():
+            outs[k], err = p.communicate(timeout=300)
+            for line in outs[k].splitlines():
+                log(f"launcher {k}: {line}")
+            if p.returncode != 0:
+                fail(f"launcher {k} {runs[k]} exited {p.returncode}: "
+                     f"{err[-2000:]}")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    # the adaptive run's T comes from the controller after round 0
+    ts = [int(l.split(" T ")[1].split()[0])
+          for l in outs["adaptive"].splitlines() if l.startswith("round ")]
+    if len(ts) != 2 or ts[0] != 4 or ts[1] == 4:
+        fail(f"launcher adaptive: T {ts}, expected 4 then the controller's")
+
+
+def phase11(torch, K):
+    """Phase 11: the convex suite, Fig 4, full-width threshold mode, the
+    pytree round against the packed one and the sync-DP baseline, then
+    the launcher. Returns the packed sync steps' launches."""
+    t0 = time.perf_counter()
+
+    def part(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        log(f"phase 11 {name}: {time.perf_counter() - t:.1f} s")
+        return out
+
+    part("convex suite", lambda: convex_suite(torch))
+    part("fig 4", lambda: fig4(torch, K))
+    part("threshold at full width", lambda: lenet_threshold(torch, K))
+    part("pytree vs packed", lambda: pytree_vs_packed(torch))
+    counts = part("sync baseline", lambda: sync_baseline(torch, K))
+    part("launchers", lambda: launcher_runs(torch))
+    log(f"phase 11: {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def _kernel_name(mangled):
     """A ptxas entry name, short: the kernel's name after its namespace
     and its raw template arguments (``paged_decode_kernel ILi64ELi1EE``:
@@ -2031,6 +2615,8 @@ def main() -> int:
         fail(f"the train and serve paths launched {off_path}")
     check_last_four(torch, results)
     counts.update(ops_path(torch))
+    for name, n in phase11(torch, K).items():
+        counts[name] += n
 
     # again at the end, where a tail of the output still holds them
     log(built)

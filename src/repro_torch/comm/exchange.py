@@ -29,6 +29,14 @@ The exchange works in place where it can: an fp32 stream and a fused
 stream are mixed into the live (G, N) buffer, whose memory the round
 owns. push_sum, hierarchical tiers, fault plans and overlap are not
 ported yet (ROADMAP.md Queue A item 4); ``get_exchange`` refuses them.
+
+The pytree round's streams are trees with a leading G axis: ``mix_tree``
+mixes them leaf by leaf (each leaf viewed as (G, -1)) through the fp32
+wire on server, ring, gossip and none, as the reference's staged path
+does. ``check_tree`` refuses the rest: int8, int8z and top-k need the
+flat buffer (the reference refuses them too), and the tree path's
+fp16/bf16 codecs, lossy downlink and async_stale are not ported yet
+(ROADMAP.md Queue A item 1b).
 """
 from __future__ import annotations
 
@@ -39,6 +47,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch import tree
 from repro_torch.comm import codecs as codecs_mod
 from repro_torch.comm import faults as faults_mod
 from repro_torch.comm import topology as topo_mod
@@ -47,6 +56,12 @@ from repro_torch.kernels.exchange_epilogue import codec_mix
 TOPOLOGIES = ("server", "ring", "gossip", "async_stale", "push_sum",
               "none", "hierarchical")
 _NOT_PORTED = "not ported yet (ROADMAP.md Queue A item 4: faults and tiers)"
+_TREE_NOT_PORTED = ("not ported yet on the pytree round (ROADMAP.md Queue A "
+                    "item 1b: the pytree round's lossy codecs and "
+                    "async_stale); run it with a packed layout")
+# codecs whose wire format is the packed (G, N) buffer (the reference's
+# flat_only codecs)
+_FLAT_ONLY = ("int8", "int8z", "topk")
 
 # moment streams default to the uncompressed wire
 _FP32 = codecs_mod.fp32()
@@ -183,6 +198,41 @@ class Exchange:
         for _ in range(self.mix_rounds):
             y = _tensordot_w(w, y)
         return out.copy_(y)
+
+    def check_tree(self, average_opt_state: bool = True) -> None:
+        """Refuse an exchange the pytree round cannot run: a flat-only
+        codec (as the reference does) or what ROADMAP.md Queue A item 1b
+        will port (a lossy tree codec or downlink, async_stale)."""
+        if self.topology == "none":
+            return           # nothing on the wire: the codecs never run
+        used = [("params", self.codec)]
+        if average_opt_state:
+            used.append(("moment", self.mcodec))
+        if self.downlink_codec is not None:
+            used.append(("downlink", self.downlink_codec))
+        for what, codec in used:
+            if codec.name in _FLAT_ONLY:
+                raise NotImplementedError(
+                    f"{what} codec {codec.name!r} needs the packed (G, N) "
+                    "buffer as its wire format — run the round with a "
+                    "packing.Layout and a packed optimizer (DESIGN.md §8)")
+            if not codec.identity:
+                raise NotImplementedError(
+                    f"{what} codec {codec.name!r} is {_TREE_NOT_PORTED}")
+        if self.topology == "async_stale":
+            raise NotImplementedError(
+                f"topology 'async_stale' is {_TREE_NOT_PORTED}")
+
+    def mix_tree(self, tree_G):
+        """Codec-free mixing of a tree whose leaves carry a leading G
+        axis, leaf by leaf, in place (each leaf mixed as its (G, -1)
+        view). Returns the tree."""
+        def leaf(x):
+            x2 = x.view(self.n_groups, -1)
+            self.mix(x2, out=x2)
+            return x
+
+        return tree.tree_map(leaf, tree_G)
 
     # -- the communication step -------------------------------------------
 

@@ -1,33 +1,41 @@
-"""The paper's Alg 1 as a packed local-SGD round (counterpart of
-``repro/core/localsgd.py``, ``_make_packed_local_round``; DESIGN.md §6).
+"""The paper's Alg 1 as local-SGD rounds (counterpart of
+``repro/core/localsgd.py``; DESIGN.md §6).
 
-    worker i:  pull x_n; run T_i local GD steps; push the result
+    worker i:  pull x_n; run T_i local GD steps (or until ||grad||^2 <= eps,
+               the paper's "Threshold" / T_i = infinity mode); push result
     server:    x_{n+1} = (1/m) sum_i x_n^{i,T_i}
 
-The state is one (G, N) float32 buffer per stream (params plus the
-optimizer's moments). Each local step takes every group's gradient
-against its own row, then updates all G*N elements with one fused kernel
-launch. The round ends with one exchange of every stream over G through
-the exchange's topology and codecs (server/fp32 by default; DESIGN.md
-§8, §10) and the reference's observability block.
+Two rounds, as in the reference, and the conventional baseline:
 
-The round takes ownership of ``state_G``: its buffers are updated in
-place (the reference donates them to its jitted round) and returned in
-the new state. So a lossy stream, whose codec encodes the round delta
-``x_T - x_0``, gets a copy of its round-start value before the local
-steps (one (G, N) buffer per lossy stream); fp32 streams are not copied.
-An exchange that carries state between rounds (codec counters and
-residuals, staleness buffers, downlink references) keeps it in the train
-state under ``"comm"`` (``init_state(..., exchange=...)``).
+* The packed round (``layout=`` and a packed optimizer): the state is one
+  (G, N) float32 buffer per stream (params plus the optimizer's moments).
+  Each local step takes every group's gradient against its own row, then
+  updates all G*N elements with one fused kernel launch. The round ends
+  with one exchange of every stream over G through the exchange's
+  topology and codecs (DESIGN.md §8, §10). It takes ownership of
+  ``state_G``: its buffers are updated in place (the reference donates
+  them to its jitted round) and returned in the new state, so a lossy
+  stream, whose codec encodes the round delta ``x_T - x_0``, gets a copy
+  of its round-start value before the local steps; fp32 streams are not
+  copied. An exchange that carries state between rounds keeps it under
+  ``"comm"`` (``init_state(..., exchange=...)``).
+* The pytree round (no layout, a pytree optimizer): every state leaf has
+  a leading G axis. It adds the threshold (T_i = inf) mode, which the
+  packed round refuses as the reference's does. It launches no kernel:
+  the pytree optimizers have none, and its exchange mixes the fp32 wire
+  leaf by leaf.
+* ``make_sync_step``: synchronous data parallelism, one step on the
+  global batch (packed: one fused update and one ``sq_norm`` launch).
 
-Per-group gradients come from a Python loop over G: row g is unpacked
-into detached views that require grad, ``torch.autograd.grad`` runs on
-group g's batch, and the leaf gradients are copied into row g of one
-(G, N) gradient buffer.
+Per-group work is a Python loop over G. The packed round unpacks row g
+into detached views that require grad, runs ``torch.autograd.grad`` on
+group g's batch and copies the leaf gradients into row g of one (G, N)
+gradient buffer. The pytree round runs each group's local steps on its
+own; a threshold group reads its stopping test after every step and
+stops on its own, which gives the counts of the reference's vmapped
+``while_loop`` (finished groups keep their state there).
 
-Not ported yet (ROADMAP.md Queue A, core/localsgd.py): the pytree round,
-threshold (T_i = inf) mode, microbatch inner mode, ``make_sync_step``
-and sharded execution.
+Not ported yet: sharded execution (ROADMAP.md Queue A item 5).
 """
 from __future__ import annotations
 
@@ -38,7 +46,7 @@ import torch
 
 from repro_torch import comm as comm_mod
 from repro_torch import tree
-from repro_torch.kernels.sq_norm import sq_norm_groups
+from repro_torch.kernels.sq_norm import sq_norm, sq_norm_groups
 from repro_torch.optim import Optimizer, packing
 
 
@@ -48,10 +56,26 @@ class LocalSGDConfig:
     inner_steps: int = 1          # T (uniform), or max T when t_i is set
     # per-node T_i (paper Alg 1): group g runs t_i[g] <= inner_steps steps
     t_i: Optional[Tuple[int, ...]] = None
-    threshold: Optional[float] = None   # T_i = inf mode (not ported)
-    # "final": loss and ||grad||^2 once at the round's result (the hot
-    # path); "traj": per-step trajectories, with one norm per step
+    threshold: Optional[float] = None  # if set: T_i = inf mode, stop at
+                                       # ||grad_i||^2 <= threshold
+    max_inner: int = 1_000        # hard cap for threshold mode
+    inner_mode: str = "fixed_batch"    # fixed_batch (paper GD) | microbatch
+    average_opt_state: bool = True
+    # packed round only: "final" evaluates loss and ||grad||^2 once at the
+    # round's result (the hot path); "traj" records them at every step.
+    # The pytree round always records trajectories.
     metrics: str = "final"
+
+
+class TrainState(dict):
+    """{"params": tree, "opt": tree} — a plain dict."""
+
+
+def replicate(tree_, n_groups: int):
+    """A tree with a leading group axis, every group a copy of ``tree_``
+    (materialized: the rounds mix the groups in place)."""
+    return tree.tree_map(
+        lambda x: x.unsqueeze(0).repeat(n_groups, *([1] * x.dim())), tree_)
 
 
 def average_groups(params_G):
@@ -74,15 +98,26 @@ def _consensus_sq_flat(x_G, impl: str) -> torch.Tensor:
     return sq_norm_groups(x32 - x32.mean(dim=0, keepdim=True), impl=impl)
 
 
-def _round_wire_bytes(exch, layout, moment_keys) -> dict:
-    """Exact payload bytes of one round (static: shapes only)."""
-    n = layout.padded
-    sizes = {k: n for k in moment_keys}
-    by_stream = exch.wire_bytes_by_stream(n, sizes)
-    by_tier = exch.wire_bytes_by_tier(n, sizes)
+def _consensus_sq_tree(params_G) -> torch.Tensor:
+    """Per-group ||x_g - mean||^2 summed over every leaf -> (G,)."""
+    total = None
+    for leaf in tree.leaves(params_G):
+        x = leaf.to(torch.float32)
+        d = x - x.mean(dim=0, keepdim=True)
+        part = torch.sum(torch.square(d), dim=tuple(range(1, d.dim())))
+        total = part if total is None else total + part
+    return total
+
+
+def _round_wire_bytes(exch, n: int, moment_sizes: dict) -> dict:
+    """Exact payload bytes of one round (static: shapes only): the params'
+    ``n`` elements and each moment stream's, each through its codec."""
+    by_stream = exch.wire_bytes_by_stream(n, moment_sizes)
+    by_tier = exch.wire_bytes_by_tier(n, moment_sizes)
     out = {"wire_bytes": sum(by_stream.values()),
-           "wire_bytes_up": exch.wire_bytes_up(n, moment_sizes=sizes),
-           "wire_bytes_down": exch.wire_bytes_down(n, moment_sizes=sizes),
+           "wire_bytes_up": exch.wire_bytes_up(n, moment_sizes=moment_sizes),
+           "wire_bytes_down": exch.wire_bytes_down(
+               n, moment_sizes=moment_sizes),
            "wire_bytes_intra": by_tier["intra"],
            "wire_bytes_inter": by_tier["inter"]}
     out.update({f"wire_bytes/{k}": v for k, v in by_stream.items()})
@@ -150,48 +185,189 @@ def _obs_round_metrics(exch, comm_state: dict, streams, consensus_pre,
     return m
 
 
+def _check_cfg(cfg: LocalSGDConfig) -> None:
+    if cfg.inner_mode not in ("fixed_batch", "microbatch"):
+        raise ValueError(f"inner_mode={cfg.inner_mode!r} (have "
+                         "'fixed_batch', 'microbatch')")
+    if cfg.t_i is not None and (len(cfg.t_i) != cfg.n_groups
+                                or max(cfg.t_i) > cfg.inner_steps):
+        raise ValueError(f"t_i={cfg.t_i} needs {cfg.n_groups} entries, each "
+                         f"<= inner_steps={cfg.inner_steps}")
+
+
 def make_local_round(loss_fn: Callable, opt: Optimizer, cfg: LocalSGDConfig,
                      layout: Optional[packing.Layout] = None,
                      exchange: Optional[comm_mod.Exchange] = None,
                      shardexec=None):
     """Build ``round(state_G, batch_G) -> (state_G, metrics)``.
 
-    loss_fn(params, batch) -> scalar tensor. state_G: {"params": (G, N),
-    "opt": packed opt state}, plus "comm" when the exchange carries state.
-    batch_G: dict of tensors with a leading G axis. Needs ``layout`` (the
-    packed round; the optimizers of ``repro_torch.optim`` are all packed).
-    ``opt.impl`` selects the update and norm kernels: on a CUDA state
+    loss_fn(params, batch) -> scalar tensor. state_G: {"params","opt"}
+    with a leading G axis ((G, N) buffers on the packed round), plus
+    "comm" when the exchange carries state. batch_G: dict of tensors with
+    leading axes (G, ...), or (G, T, ...) in microbatch mode.
+
+    With ``layout`` and a packed optimizer the round is the packed one:
+    ``opt.impl`` selects the update and norm kernels (on a CUDA state
     "auto" launches them; the exchange's codecs dispatch on the device
-    the same way. Every moment stream is exchanged with the params, each
-    through the exchange's moment codec, as in the reference's default."""
-    if layout is None:
-        raise NotImplementedError(
-            "only the packed round is ported: pass layout= (the pytree "
-            "round is ROADMAP.md Queue A, core/localsgd.py)")
+    the same way). Without, the pytree round. ``exchange`` defaults to
+    server/fp32."""
     if shardexec is not None:
         raise NotImplementedError(
             "sharded execution is not ported yet (ROADMAP.md Queue A, "
             "sharding/shardexec.py -> torch.distributed)")
-    if cfg.threshold is not None:
-        raise NotImplementedError(
-            "threshold (T_i=inf) mode is not ported yet (ROADMAP.md Queue "
-            "A, core/localsgd.py)")
-    if cfg.metrics not in ("traj", "final"):
-        raise ValueError(f"metrics={cfg.metrics!r} (have 'traj', 'final')")
+    _check_cfg(cfg)
     exch = exchange if exchange is not None else comm_mod.default_exchange(
         cfg.n_groups)
     if exch.n_groups != cfg.n_groups:
         raise ValueError(f"exchange built for G={exch.n_groups} but "
                          f"cfg.n_groups={cfg.n_groups}")
+    if layout is not None or opt.packed:
+        if layout is None or not opt.packed:
+            raise ValueError(
+                "packed rounds need BOTH a packing.Layout and a packed "
+                "optimizer (optim.packed / optim.get(..., packed=True))")
+        return _make_packed_local_round(loss_fn, opt, cfg, layout, exch)
+    return _make_tree_local_round(loss_fn, opt, cfg, exch)
+
+
+# ---------------------------------------------------------------------------
+# The pytree round
+# ---------------------------------------------------------------------------
+
+
+def _value_and_grad(loss_fn):
+    """(params, batch) -> (loss, grads tree) by autograd on detached
+    copies of the leaves."""
+    def vg(params, batch):
+        paths, leaves = tree.flatten(params)
+        leaves = [x.detach().requires_grad_() for x in leaves]
+        with torch.enable_grad():
+            loss = loss_fn(tree.unflatten(paths, leaves), batch)
+            grads = torch.autograd.grad(loss, leaves)
+        return loss.detach(), tree.unflatten(paths, list(grads))
+
+    return vg
+
+
+def _stack(trees):
+    return tree.tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def _make_tree_local_round(loss_fn, opt, cfg, exch):
+    exch.check_tree(cfg.average_opt_state)
+    vg = _value_and_grad(loss_fn)
+    G, T = cfg.n_groups, cfg.inner_steps
+
+    def gsq_of(grads):
+        return grad_sq_norm(tree.leaves(grads))
+
+    def threshold_group(p, o, batch):
+        """Local steps until the gradient the last step used has
+        ||g||^2 <= threshold (or max_inner steps): the reference's loop
+        tests the norm its body took BEFORE the step, from |g(w0)|^2, so a
+        start at or below eps takes no step, and otherwise the group
+        stops after the step from the first w_k with |g(w_k)|^2 <= eps.
+        loss and grad_sq are those of that last w_k."""
+        loss, g = vg(p, batch)
+        gsq, t = gsq_of(g), 0
+        while t < cfg.max_inner and bool(gsq > cfg.threshold):
+            if t:
+                loss, g = vg(p, batch)
+                gsq = gsq_of(g)
+            p, o = opt.step(p, g, o)
+            t += 1
+        return p, o, {"loss": loss, "inner_steps": t, "grad_sq": gsq}
+
+    def steps_group(p, o, batches, t_i):
+        """T steps, step t on ``batches(t)``; steps t >= t_i leave the
+        state as it is (the reference's masked scan), and their loss and
+        norm, taken at that frozen state, repeat."""
+        losses, gsqs = [], []
+        for t in range(T):
+            if t > t_i:
+                losses.append(losses[-1])
+                gsqs.append(gsqs[-1])
+                continue
+            loss, g = vg(p, batches(t))
+            losses.append(loss)
+            gsqs.append(gsq_of(g))
+            if t < t_i:
+                p, o = opt.step(p, g, o)
+        gsq = torch.stack(gsqs)
+        return p, o, {"loss": losses[-1], "inner_steps": t_i,
+                      "grad_sq": gsq[-1], "grad_sq_first": gsq[0],
+                      "grad_sq_traj": gsq}
+
+    def round_(state_G, batch_G):
+        mkeys = (tuple(k for k in state_G["opt"] if k != "count")
+                 if cfg.average_opt_state else ())
+        _check_comm_state(exch, state_G, mkeys)
+        comm_state = state_G.get("comm", {})
+        params_G, opt_G = state_G["params"], state_G["opt"]
+        dev = tree.leaves(params_G)[0].device
+        outs = []
+        for g in range(G):
+            p = tree.tree_map(lambda x: x[g], params_G)
+            o = tree.tree_map(lambda x: x[g], opt_G)
+            b = tree.tree_map(lambda x: x[g], batch_G)
+            if cfg.inner_mode == "microbatch":
+                # one microbatch a step; t_i does not apply (as in the
+                # reference, which ignores it in this mode)
+                outs.append(steps_group(
+                    p, o, lambda t: tree.tree_map(lambda x: x[t], b), T))
+            elif cfg.threshold is not None:
+                outs.append(threshold_group(p, o, b))
+            else:
+                outs.append(steps_group(
+                    p, o, lambda t: b,
+                    T if cfg.t_i is None else cfg.t_i[g]))
+        params_G = _stack([x[0] for x in outs])
+        opt_G = _stack([x[1] for x in outs])
+        metrics = {k: torch.stack([torch.as_tensor(x[2][k], device=dev)
+                                   for x in outs]) for k in outs[0][2]}
+        metrics["inner_steps"] = metrics["inner_steps"].to(torch.int32)
+        consensus_pre = _consensus_sq_tree(params_G)
+        # every stream through the fp32 wire (the step count never is)
+        xs = {"params": params_G, **{k: opt_G[k] for k in mkeys}}
+        mixed = {k: exch.mix_tree(v) for k, v in xs.items()}
+        n = sum(x.numel() // G for x in tree.leaves(params_G))
+        msizes = {k: sum(x.numel() // G for x in tree.leaves(opt_G[k]))
+                  for k in mkeys}
+        metrics.update(_round_wire_bytes(exch, n, msizes))
+        metrics.update(_obs_round_metrics(
+            exch, comm_state, ("params",) + mkeys, consensus_pre,
+            _consensus_sq_tree(mixed["params"]), G, dev, "torch"))
+        out = {"params": mixed["params"],
+               "opt": {k: mixed.get(k, v) for k, v in opt_G.items()}}
+        if "comm" in state_G:
+            out["comm"] = comm_state
+        return out, metrics
+
+    return round_
+
+
+# ---------------------------------------------------------------------------
+# The packed round
+# ---------------------------------------------------------------------------
+
+
+def _make_packed_local_round(loss_fn, opt, cfg, layout, exch):
+    if cfg.metrics not in ("traj", "final"):
+        raise ValueError(f"metrics={cfg.metrics!r} (have 'traj', 'final')")
+    if cfg.threshold is not None:
+        raise NotImplementedError(
+            "threshold (T_i=inf) mode runs on the pytree path")
+    if cfg.t_i is not None and cfg.inner_mode == "microbatch":
+        raise NotImplementedError(
+            "t_i is only defined for fixed_batch mode (the pytree path "
+            "silently ignores it for microbatch)")
     packing.check_packed_index_space(layout, cfg.n_groups)
-    if cfg.t_i is not None and (len(cfg.t_i) != cfg.n_groups
-                                or max(cfg.t_i) > cfg.inner_steps):
-        raise ValueError(f"t_i={cfg.t_i} needs {cfg.n_groups} entries, each "
-                         f"<= inner_steps={cfg.inner_steps}")
     per_group_count = cfg.t_i is not None and opt.count_dependent
-    mkeys = packing.stream_layout_for(opt, layout).moment_streams
+    mkeys = (packing.stream_layout_for(opt, layout).moment_streams
+             if cfg.average_opt_state else ())
     flat_vg = packing.value_and_flat_grad(loss_fn, layout)
     traj = cfg.metrics == "traj"
+    micro = cfg.inner_mode == "microbatch"
     G, T = cfg.n_groups, cfg.inner_steps
 
     def round_(state_G, batch_G):
@@ -208,6 +384,10 @@ def make_local_round(loss_fn: Callable, opt: Optimizer, cfg: LocalSGDConfig,
             # first round after init: the shared count becomes one per group
             opt_state["count"] = opt_state["count"].expand(G).clone()
         batches = [tree.tree_map(lambda x: x[g], batch_G) for g in range(G)]
+        if micro:
+            # (T, G): one microbatch a step
+            steps = [[tree.tree_map(lambda x: x[t], b) for b in batches]
+                     for t in range(T)]
         # (T, G) step mask of the t_i schedule, made once per round
         active = (None if cfg.t_i is None else
                   (torch.arange(T)[:, None]
@@ -215,7 +395,8 @@ def make_local_round(loss_fn: Callable, opt: Optimizer, cfg: LocalSGDConfig,
         grads = torch.empty_like(params)
         losses, gsqs = [], []
         for t in range(T):
-            loss_t = torch.stack([flat_vg(params[g], batches[g],
+            bt = steps[t] if micro else batches
+            loss_t = torch.stack([flat_vg(params[g], bt[g],
                                           out=grads[g])[0] for g in range(G)])
             params, opt_state = opt.step(
                 params, grads, opt_state,
@@ -234,12 +415,13 @@ def make_local_round(loss_fn: Callable, opt: Optimizer, cfg: LocalSGDConfig,
                        "grad_sq_first": gsq_traj[:, 0],
                        "grad_sq_traj": gsq_traj}
         else:
-            # one extra loss/grad at the round's result; its norm is the
-            # per-leaf sum (no packed gradient needed)
+            # one extra loss/grad at the round's result (on the last
+            # microbatch in microbatch mode); its norm is the per-leaf sum
+            last = steps[-1] if micro else batches
             loss_G, gsq_G = [], []
             for g in range(G):
                 loss, leaf_grads = packing.value_and_leaf_grads(
-                    loss_fn, layout, params[g], batches[g])
+                    loss_fn, layout, params[g], last[g])
                 loss_G.append(loss)
                 gsq_G.append(grad_sq_norm(leaf_grads))
             metrics = {"loss": torch.stack(loss_G), "inner_steps": n_steps,
@@ -255,7 +437,8 @@ def make_local_round(loss_fn: Callable, opt: Optimizer, cfg: LocalSGDConfig,
         mixed = _clamp_nonneg_streams(mixed, opt, exch)
         params = mixed["params"]
         opt_state.update({k: mixed[k] for k in mkeys})
-        metrics.update(_round_wire_bytes(exch, layout, mkeys))
+        metrics.update(_round_wire_bytes(exch, layout.padded,
+                                         {k: layout.padded for k in mkeys}))
         metrics.update(_obs_round_metrics(
             exch, comm_state, ("params",) + tuple(mkeys), consensus_pre,
             _consensus_sq_flat(params, opt.impl), G, dev, opt.impl))
@@ -267,25 +450,86 @@ def make_local_round(loss_fn: Callable, opt: Optimizer, cfg: LocalSGDConfig,
     return round_
 
 
-def init_state(params, opt: Optimizer, n_groups: int,
-               layout: packing.Layout,
-               exchange: Optional[comm_mod.Exchange] = None):
-    """Packed grouped state: the params tree packed to (N,) and copied to
-    every one of the ``n_groups`` rows, plus the optimizer's state, plus
-    (for an exchange that carries state between rounds) the exchange's
-    state for the params and every moment stream under ``"comm"``."""
-    buf_G = packing.pack(params, layout)[None].repeat(n_groups, 1)
-    state = {"params": buf_G, "opt": opt.init(buf_G)}
+# ---------------------------------------------------------------------------
+# Conventional baseline: synchronous data parallelism (one step per batch)
+# ---------------------------------------------------------------------------
+
+
+def make_sync_step(loss_fn: Callable, opt: Optimizer,
+                   layout: Optional[packing.Layout] = None):
+    """Standard DP: ``step(state, batch) -> (state, {"loss", "grad_sq"})``
+    on the global batch; state has no G axis. With ``layout`` (and a
+    packed optimizer) the state is the flat (N,) buffer, the update is
+    one fused launch on its one-row view and ``grad_sq`` one ``sq_norm``
+    launch, both in place of the buffer the state holds."""
+    if layout is not None or opt.packed:
+        if layout is None or not opt.packed:
+            raise ValueError(
+                "packed sync steps need BOTH a packing.Layout and a "
+                "packed optimizer")
+        packing.check_packed_index_space(layout)
+        flat_vg = packing.value_and_flat_grad(loss_fn, layout)
+
+        def packed_step(state, batch):
+            loss, g = flat_vg(state["params"], batch)
+            new_p, new_o = opt.step(state["params"], g, state["opt"])
+            return ({"params": new_p, "opt": new_o},
+                    {"loss": loss, "grad_sq": sq_norm(g, impl=opt.impl)})
+
+        return packed_step
+
+    vg = _value_and_grad(loss_fn)
+
+    def step(state, batch):
+        loss, g = vg(state["params"], batch)
+        new_p, new_o = opt.step(state["params"], g, state["opt"])
+        return ({"params": new_p, "opt": new_o},
+                {"loss": loss, "grad_sq": grad_sq_norm(tree.leaves(g))})
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# State
+# ---------------------------------------------------------------------------
+
+
+def init_state(params, opt: Optimizer, n_groups: Optional[int] = None,
+               layout: Optional[packing.Layout] = None,
+               exchange: Optional[comm_mod.Exchange] = None,
+               average_opt_state: bool = True):
+    """The train state of a round (``n_groups``) or of a sync step (no
+    G axis). Packed (``layout``): the params tree packed to (N,), copied
+    to every row of a (G, N) buffer, plus the optimizer's state. Pytree:
+    the params tree and its optimizer state, replicated over G (the
+    count too, so each group keeps its own). An exchange that carries
+    state between rounds adds it under ``"comm"``, for the params and
+    (when the rounds average opt state) every moment stream."""
+    if layout is not None:
+        buf = packing.pack(params, layout)
+        if n_groups:
+            buf = buf[None].repeat(n_groups, 1)
+        state = {"params": buf, "opt": opt.init(buf)}
+    else:
+        state = {"params": params, "opt": opt.init(params)}
+        if n_groups:
+            state = replicate(state, n_groups)
     if exchange is not None and exchange.stateful:
-        moments = {k: state["opt"][k] for k in opt.moment_keys}
-        state["comm"] = exchange.init(buf_G, moments=moments or None)
+        if not n_groups:
+            raise ValueError("stateful exchanges need a grouped state "
+                             "(pass n_groups)")
+        moments = ({k: v for k, v in state["opt"].items() if k != "count"}
+                   if average_opt_state else {})
+        state["comm"] = exchange.init(state["params"],
+                                      moments=moments or None)
     return state
 
 
-def server_params(state_G, layout: packing.Layout):
+def server_params(state_G, layout: Optional[packing.Layout] = None):
     """The averaged (server) model of a grouped state, as a tree."""
-    buf = state_G["params"]
-    if buf.dim() > 1:
-        buf = buf.mean(dim=0)
-    return packing.unpack(buf, layout)
-
+    if layout is not None:
+        buf = state_G["params"]
+        if buf.dim() > 1:
+            buf = buf.mean(dim=0)
+        return packing.unpack(buf, layout)
+    return tree.tree_map(lambda x: x.mean(dim=0), state_G["params"])

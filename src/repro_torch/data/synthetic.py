@@ -1,9 +1,13 @@
-"""Synthetic token pipeline (a copy of ``TokenPipeline`` in
-``repro/data/synthetic.py``).
+"""Synthetic data (a copy of ``repro/data/synthetic.py``).
 
-Deterministic numpy batches with a Zipf-ish marginal and a learnable
-bigram structure. The same seed gives the same int32 tokens as the
-reference, bit for bit, so both packages train on the same data.
+* ``TokenPipeline``: deterministic numpy token batches with a Zipf-ish
+  marginal and a learnable bigram structure, and ``fixed_group_batches``,
+  one fixed (G, b, S) batch of it (Fig 4).
+* Fig 3's classification sets (``gaussian_classification``,
+  ``maxpool2x2_twice``).
+
+The same seed gives the same arrays as the reference, bit for bit, so
+both packages train on the same data.
 """
 from __future__ import annotations
 
@@ -45,3 +49,34 @@ class TokenPipeline:
         while True:
             toks = np.stack([self._sample_seq(rng) for _ in range(n)])
             yield {"tokens": toks.reshape(*batch_shape, self.seq_len)}
+
+
+def fixed_group_batches(vocab_size: int, seq_len: int, n_groups: int,
+                        per_group: int, seed: int = 0) -> dict:
+    """A fixed (G, b, S) batch: each group's local dataset shard, for the
+    paper's full-batch local GD mode."""
+    pipe = TokenPipeline(vocab_size, seq_len, seed)
+    return next(pipe.batches((n_groups, per_group)))
+
+
+def gaussian_classification(n: int = 500, side: int = 28, n_classes: int = 10,
+                            seed: int = 0):
+    """Fig 3's MNIST-shaped set: class-conditional Gaussians on a side*side
+    grid. Returns (x (n, side*side) float32, labels (n,) int32)."""
+    rng = np.random.RandomState(seed)
+    means = rng.randn(n_classes, side * side) * 2.0
+    labels = rng.randint(0, n_classes, size=n)
+    x = means[labels] + rng.randn(n, side * side)
+    return x.astype(np.float32), labels.astype(np.int32)
+
+
+def maxpool2x2_twice(x: np.ndarray, side: int = 28) -> np.ndarray:
+    """Fig 3's 'Non-Intersected' variant: two 2x2 max-pools shrink the
+    input to (side/4)^2 features so parameters (49*10=490) < samples (500)
+    and the intersection assumption fails."""
+    n = x.shape[0]
+    img = x.reshape(n, side, side)
+    for _ in range(2):
+        s = img.shape[1] // 2
+        img = img.reshape(n, s, 2, s, 2).max(axis=(2, 4))
+    return img.reshape(n, -1)

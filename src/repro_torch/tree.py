@@ -29,7 +29,9 @@ def flatten(tree) -> Tuple[List[Path], List[Any]]:
     return paths, leaves
 
 
-def unflatten(paths, leaves) -> dict:
+def unflatten(paths, leaves):
+    if list(paths) == [()]:          # the tree was one leaf
+        return leaves[0]
     out: dict = {}
     for path, leaf in zip(paths, leaves):
         node = out
@@ -39,9 +41,12 @@ def unflatten(paths, leaves) -> dict:
     return out
 
 
-def tree_map(fn, tree):
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` and of the trees in ``rest``
+    (which have its structure), leaf by leaf."""
     paths, leaves = flatten(tree)
-    return unflatten(paths, [fn(x) for x in leaves])
+    others = [flatten(t)[1] for t in rest]
+    return unflatten(paths, [fn(*xs) for xs in zip(leaves, *others)])
 
 
 def leaves(tree) -> list:
