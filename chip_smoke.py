@@ -161,11 +161,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    own settings (the ``FIG*`` constants, each naming its source line in
    ``benchmarks/``; no cut): Fig 2a, 2b, 3, 5 (with the decay fit and the
    T* formulas) and 6-7, each figure's own ``pass`` expression required,
-   its integer quantities, slopes, rates and wall time printed; Fig 5's
-   quartic threshold run also with the stopping test read every
-   ``CHECK_EVERY`` steps (the same counts required, both times logged);
-   Fig 2b's T=10 and threshold runs over 5 rounds on the card against
-   the CPU (gsq rtol 1e-4, inner counts equal). Fig 4 on the pytree round
+   its integer quantities, slopes, rates and wall time printed; Fig 2b's
+   T=10 and threshold runs over 5 rounds on the card against the CPU
+   (gsq rtol 1e-4, inner counts equal). Fig 4 on the pytree round
    (paper-mlp at full config, G 4, 4 sequences of 64 a group, sgd, 10
    rounds; T 1, 10, 50 and threshold 3e-2 with ``max_inner`` 100), its
    ``pass`` expression required. Threshold mode at full width
@@ -175,21 +173,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    1, the wire bytes worked out from the shapes; its fenced time and peak
    memory logged. The pytree round against the packed round at full
    width (sgd, T 4, server/fp32, the same params): server params within
-   atol 1e-6. The packed sync step (paper-lenet, 8 x 128 tokens): sgd and
-   momentum one step, adamw three, each launching its update kernel and
-   ``sq_norm_groups`` once a step (the counts set to 0 before each), the
-   pytree adamw step beside it agreeing after one step (rtol 1e-5 / atol
-   1e-6). None of the convex, Fig 4, threshold or pytree runs launches a
-   kernel. One threshold round and one sync step under ``torch.profiler``.
+   atol 1e-6. The packed round's microbatch mode at full width (sgd, G 4,
+   T 2 microbatches of 2 x 128 tokens a group, server/fp32): with the
+   counts set to 0 just before, ``fused_sgd`` launched once a step and
+   ``sq_norm_groups`` twice, no exchange kernel; its server params
+   within atol 1e-6 of the pytree round's microbatch mode. The packed
+   sync step (paper-lenet, 8 x 128 tokens): sgd and momentum one step,
+   adamw three, each launching its update kernel and ``sq_norm_groups``
+   once a step (the counts set to 0 before each); every step's update and
+   norm held against their plain versions (``impl="torch"``) on the
+   state it started from and the gradient it was given, at its one-row
+   (1, 124,662,528) geometry: the state bit-equal for sgd, rtol 1e-6 /
+   atol 1e-7 for momentum and adamw, grad_sq rtol 1e-5; the pytree adamw
+   step beside it agreeing after one step (rtol 1e-5 / atol 1e-6). None
+   of the convex, Fig 4, threshold or pytree runs launches a kernel. One
+   threshold round and one sync step under ``torch.profiler``.
    Then ``python -m repro_torch.launch.train`` at paper-mlp's full config
    with ``--mode sync --packed``, ``--threshold 3e-2`` (pytree) and
    ``--packed --adaptive-t --t-inner 4 --lr 0.02`` (its second round at
    the controller's T) must each exit 0.
 
 The line before the last is one JSON object with each kernel's numbers
-(the launches of phases 5 and 8 for the first eight, plus phase 11's
-sync steps for the update kernels and ``sq_norm_groups``, of phase 10's
-``ops`` path for the last four; ``paged_decode_attention`` and
+(the launches of phases 5 and 8 for the first eight, of phase 10's
+``ops`` path for the last four; the update kernels and
+``sq_norm_groups`` also carry phase 11's ``microbatch_launches`` and
+``sync_launches``, each path's own count; ``paged_decode_attention`` and
 ``mamba_chunk`` also carry ``device_ms``, the device's time alone at the
 shape of their ``ms``); the last line is ``{"ok": true, "device":
 {...}}``.
@@ -1994,9 +2002,6 @@ FIG67 = dict(n=60, d=1200, ms=(2, 5, 10), lr=2.0, T=100, rounds=40)
 # fig4_deepnet.py:22-34, 37-50
 FIG4 = dict(G=4, per_group=4, seq=64, lr=0.05, rounds=10, Ts=(1, 10, 50),
             threshold=3e-2, max_inner=100)
-# the host-read interval measured against a read after every step, on
-# Fig 5's quartic threshold run
-CHECK_EVERY = 32
 # full-width threshold mode: paper-lenet, G 4, 2 sequences of 128 a group,
 # sgd. eps is chosen from the groups' |g(w_t)|^2 over 30 fixed steps of
 # round 1 (PERF.md §6, PR 18, run 1: 74-78 at w_0, 24.0 and 24.6 at w_1
@@ -2157,19 +2162,6 @@ def fig5(torch, run_alg1, rounds_to, convex, theory, np):
             if thr:
                 extra = (f", inner steps {sum(map(sum, out['inner']))}: "
                          f"{out['inner']}")
-                if name == "quartic":
-                    # the host-read interval: every step against every
-                    # CHECK_EVERY steps (masked on the device between)
-                    out_k, s_k = _timed(torch, lambda: run_alg1(
-                        losses, w0, lr=lr, T=None, rounds=c["rounds"],
-                        threshold=thr, device="cuda",
-                        check_every=CHECK_EVERY))
-                    if out_k["inner"] != out["inner"]:
-                        fail(f"fig5 quartic: check_every={CHECK_EVERY} "
-                             f"counts {out_k['inner']} differ from "
-                             f"{out['inner']}")
-                    extra += (f"; check_every 1 {s:.2f} s, check_every "
-                              f"{CHECK_EVERY} {s_k:.2f} s (same counts)")
             log(f"fig5 {name} {label}: {s:.2f} s, final gsq "
                 f"{final[label]:.4e}, rounds to 1e-6 {r2t[label]}{extra}")
         traj = traj[traj > traj[0] * 1e-10][:200]
@@ -2408,8 +2400,89 @@ def pytree_vs_packed(torch):
         fail(f"pytree and packed rounds differ by {err:.3e} > 1e-6")
 
 
+def microbatch_round(torch, K):
+    """Phase 11, part 5: the packed round's microbatch mode at full width
+    (paper-lenet, G 4, T 2 microbatches of 2 sequences of 128 a group,
+    sgd, server/fp32). Its launches are counted from 0 (the update kernel
+    once a step, the norm twice: the consensus before and after the
+    exchange; no exchange kernel on server/fp32), then its server params
+    are held against the pytree round's microbatch mode from the same
+    params (atol 1e-6). Returns its launches."""
+    from repro_torch import optim, tree
+    from repro_torch.core import localsgd as lsgd
+    from repro_torch.data.synthetic import TokenPipeline
+    from repro_torch.optim import packing
+
+    cfg, model, params = _lenet(torch)
+    G, T = 4, 2
+    tokens = next(TokenPipeline(cfg.vocab_size, 128, seed=0).batches(
+        (G, T, 2)))["tokens"]
+    batch = {"tokens": torch.as_tensor(tokens, device="cuda")}
+    lcfg = lsgd.LocalSGDConfig(n_groups=G, inner_steps=T,
+                               inner_mode="microbatch")
+    layout = packing.layout_of(params)
+    popt = optim.packed("sgd", 0.05)
+    prnd = lsgd.make_local_round(model.loss, popt, lcfg, layout=layout)
+    pst = lsgd.init_state(params, popt, G, layout)
+    ee = K.exchange_epilogue
+    _zero_update_counts(K)
+    for k in ee.launches:
+        ee.launches[k] = 0
+    (pst, pm), ps = _timed(torch, lambda: prnd(pst, batch))
+    got = dict(_update_counts(K), **ee.launches)
+    want = dict.fromkeys(got, 0)
+    want.update(fused_sgd=T, sq_norm_groups=2)
+    if got != want:
+        fail(f"microbatch round: launches {got}, expected {want}")
+    packed_server = tree.leaves(lsgd.server_params(pst, layout))
+    del pst
+    topt = optim.sgd(0.05)
+    trnd = lsgd.make_local_round(model.loss, topt, lcfg)
+    (tst, tm), ts = _timed(torch, lambda: trnd(
+        lsgd.init_state(params, topt, G), batch))
+    if dict(_update_counts(K), **ee.launches) != got:
+        fail("microbatch round: the pytree round launched a kernel")
+    err = max(float((a - b).abs().max()) for a, b in zip(
+        tree.leaves(lsgd.server_params(tst)), packed_server))
+    log(f"microbatch round (paper-lenet, sgd, T {T}): launches {got}; "
+        f"loss {pm['loss'].tolist()}; server params against the pytree "
+        f"round max abs diff {err:.3e}; packed {ps:.3f} s, pytree "
+        f"{ts:.3f} s fenced")
+    if err > 1e-6:
+        fail(f"microbatch: pytree and packed rounds differ by {err:.3e} "
+             "> 1e-6")
+    return {k: got[k] for k in _update_counts(K)}
+
+
+def _hold_sync_step(torch, K, name, i, pst, pm, plain, g):
+    """A packed sync step's kernels against their plain versions on the
+    step's own inputs, at its one-row (1, N) geometry: ``plain`` is the
+    state the plain update (``impl="torch"``) makes from the state the
+    step started from and the gradient ``g`` it was given. The params
+    (and moments) bit-equal for sgd, ``EW_TOL`` for momentum and adamw,
+    as in phase 3; grad_sq (``sq_norm``) within ``NORM_RTOL``."""
+    errs = []
+    for key, k, w in [("params", pst["params"], plain["params"])] + [
+            (m, pst["opt"][m], plain["opt"][m]) for m in pst["opt"]
+            if m != "count"]:
+        if name == "sgd":
+            if not torch.equal(k, w):
+                fail(f"sync sgd step {i}: {key} differ from the plain "
+                     "update's")
+            errs.append(0.0)
+        else:
+            errs.append(compare(f"sync {name} step {i} {key}", k, w,
+                                **EW_TOL))
+    g_err = compare(f"sync {name} step {i} grad_sq", pm["grad_sq"],
+                    K.sq_norm.sq_norm(g, impl="torch"), rtol=NORM_RTOL,
+                    atol=0.0)
+    log(f"sync {name} step {i}: kernels against plain versions at (1, "
+        f"{pst['params'].numel():,}): state max abs err {max(errs):.3e}, "
+        f"grad_sq {float(pm['grad_sq']):.6e} (err {g_err:.3e})")
+
+
 def sync_baseline(torch, K):
-    """Phase 11, part 5: the sync-DP baseline at full width. Returns the
+    """Phase 11, part 6: the sync-DP baseline at full width. Returns the
     packed sync steps' launches (counts set to 0 just before them)."""
     from repro_torch import optim
     from repro_torch.core import localsgd as lsgd
@@ -2433,12 +2506,33 @@ def sync_baseline(torch, K):
     del tst
     counts = {}
     for name, steps in (("sgd", 1), ("momentum", 1), ("adamw", 3)):
-        popt = optim.packed(name, 1e-3 if name == "adamw" else 0.05)
-        pstep = lsgd.make_sync_step(model.loss, popt, layout=layout)
+        lr = 1e-3 if name == "adamw" else 0.05
+        popt = optim.packed(name, lr)
+        plain_opt = optim.packed(name, lr, impl="torch")
+        given = {}
+
+        def kept(buf, g, state, active=None, _step=popt.step):
+            # the gradient the update is given (read, not written, by it):
+            # the plain update is held against the kernel's on it
+            given["g"] = g
+            return _step(buf, g, state, active)
+
+        pstep = lsgd.make_sync_step(
+            model.loss, dataclasses.replace(popt, step=kept), layout=layout)
         pst = lsgd.init_state(params, popt, layout=layout)
         _zero_update_counts(K)
         for i in range(steps):
+            start = {"params": pst["params"].clone(),
+                     "opt": {k: v.clone() for k, v in pst["opt"].items()}}
             (pst, pm), s = _timed(torch, lambda: pstep(pst, batch))
+            launched = _update_counts(K)
+            rp, ro = plain_opt.step(start["params"], given["g"],
+                                    start["opt"])
+            _hold_sync_step(torch, K, name, i, pst, pm,
+                            {"params": rp, "opt": ro}, given.pop("g"))
+            if _update_counts(K) != launched:
+                fail(f"sync {name}: the plain versions launched a kernel")
+            del start, rp, ro
             if name == "adamw":
                 log(f"sync step {i} (packed adamw, paper-lenet, batch 8 x "
                     f"128): loss {float(pm['loss']):.4f} gsq "
@@ -2467,7 +2561,7 @@ def sync_baseline(torch, K):
 
 
 def launcher_runs(torch):
-    """Phase 11, part 6: the train launcher's new modes at paper-mlp's full
+    """Phase 11, part 7: the train launcher's new modes at paper-mlp's full
     config, as a user runs them; each must exit 0."""
     base = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
             "paper-mlp", "--rounds", "2"]
@@ -2506,8 +2600,9 @@ def launcher_runs(torch):
 
 def phase11(torch, K):
     """Phase 11: the convex suite, Fig 4, full-width threshold mode, the
-    pytree round against the packed one and the sync-DP baseline, then
-    the launcher. Returns the packed sync steps' launches."""
+    pytree round against the packed one, the packed microbatch round and
+    the sync-DP baseline, then the launcher. Returns the launches of the
+    microbatch round and of the packed sync steps, by path."""
     t0 = time.perf_counter()
 
     def part(name, fn):
@@ -2520,10 +2615,11 @@ def phase11(torch, K):
     part("fig 4", lambda: fig4(torch, K))
     part("threshold at full width", lambda: lenet_threshold(torch, K))
     part("pytree vs packed", lambda: pytree_vs_packed(torch))
-    counts = part("sync baseline", lambda: sync_baseline(torch, K))
+    micro = part("microbatch round", lambda: microbatch_round(torch, K))
+    sync = part("sync baseline", lambda: sync_baseline(torch, K))
     part("launchers", lambda: launcher_runs(torch))
     log(f"phase 11: {time.perf_counter() - t0:.1f} s")
-    return counts
+    return {"microbatch_launches": micro, "sync_launches": sync}
 
 
 def _kernel_name(mangled):
@@ -2615,8 +2711,7 @@ def main() -> int:
         fail(f"the train and serve paths launched {off_path}")
     check_last_four(torch, results)
     counts.update(ops_path(torch))
-    for name, n in phase11(torch, K).items():
-        counts[name] += n
+    by_path = phase11(torch, K)
 
     # again at the end, where a tail of the output still holds them
     log(built)
@@ -2632,6 +2727,9 @@ def main() -> int:
                         "library_ms": r["library_ms"]})
         if "device_ms" in r:
             kernels[-1]["device_ms"] = r["device_ms"]
+        for path, got in by_path.items():
+            if name in got:
+                kernels[-1][path] = got[name]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

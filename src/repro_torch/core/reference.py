@@ -6,10 +6,7 @@ Each node's local GD steps run as a loop of PyTorch ops on ``device``
 (the reference runs them inside one jitted ``lax.scan`` /
 ``lax.while_loop``), with gradients from autograd. A fixed-T run reads
 nothing back to the host until the round ends. The threshold (T_i = inf)
-run must read its stopping test: it reads it once every ``check_every``
-steps, running the steps in between masked on the device, so a node that
-has stopped keeps its iterate and its count, and the counts are those of
-a test after every step.
+run reads its stopping test on the host after every step.
 """
 from __future__ import annotations
 
@@ -49,36 +46,21 @@ def make_local_T(f: Callable, lr: float, T: int):
 
 
 def make_local_threshold(f: Callable, lr: float, eps: float,
-                         max_inner: int, check_every: int = 1):
+                         max_inner: int):
     """w -> (w_out, steps): local GD until ||grad||^2 <= eps (T_i = inf),
     the test made on the gradient at the new iterate after each step, as
-    the reference's ``while_loop`` makes it. The test is read on the host
-    every ``check_every`` steps; the steps in between are masked on the
-    device (a stopped node's iterate, gradient and count stay as they
-    are), so the count does not depend on ``check_every``."""
-    if check_every < 1:
-        raise ValueError(f"check_every={check_every} must be >= 1")
+    the reference's ``while_loop`` makes it."""
     g = grad_of(f)
 
     def run(w):
         gi = g(w)
+        n = 0
         # the comparison runs in float32 on the device, as the reference's
-        if check_every == 1:
-            n = 0
-            while n < max_inner and bool(_sq(gi) > eps):
-                w = w - lr * gi
-                gi = g(w)
-                n += 1
-            return w, n
-        n = torch.zeros((), dtype=torch.int32, device=w.device)
-        on = (n < max_inner) & (_sq(gi) > eps)
-        while bool(on):
-            for _ in range(check_every):
-                w = torch.where(on, w - lr * gi, w)
-                gi = torch.where(on, g(w), gi)
-                n = n + on.to(torch.int32)
-                on = (n < max_inner) & (_sq(gi) > eps)
-        return w, int(n)
+        while n < max_inner and bool(_sq(gi) > eps):
+            w = w - lr * gi
+            gi = g(w)
+            n += 1
+        return w, n
 
     return run
 
@@ -86,19 +68,17 @@ def make_local_threshold(f: Callable, lr: float, eps: float,
 def run_alg1(losses: List[Callable], w0, lr: float, T: Optional[int],
              rounds: int, threshold: Optional[float] = None,
              max_inner: int = 100_000, record_local_traj: bool = False,
-             stop_below: Optional[float] = None, device="cuda",
-             check_every: int = 1) -> dict:
+             stop_below: Optional[float] = None, device="cuda") -> dict:
     """Model averaging (paper Alg 1) on a list of local losses (torch
     functions of a 1-D float32 tensor on ``device``).
 
-    T=None + threshold=eps -> the paper's T_i = infinity mode (its test
-    read on the host every ``check_every`` steps). Returns per-round
+    T=None + threshold=eps -> the paper's T_i = infinity mode. Returns per-round
     global ||grad f||^2 and f values (Python floats), inner-step counts,
     the final iterate (a tensor on ``device``), and node 0's local gsq
     trajectory if requested."""
     if threshold is not None:
-        runners = [make_local_threshold(f, lr, threshold, max_inner,
-                                        check_every) for f in losses]
+        runners = [make_local_threshold(f, lr, threshold, max_inner)
+                   for f in losses]
     else:
         runners = [make_local_T(f, lr, T) for f in losses]
     grads = [grad_of(f) for f in losses]

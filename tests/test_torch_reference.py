@@ -61,21 +61,17 @@ def test_regression_fixed_t(T):
         assert tref.rounds_to(t["gsq"], tol) == jref.rounds_to(j["gsq"], tol)
 
 
-@pytest.mark.parametrize("power,lr,check_every", [
-    (1, 2.0, 1), (1, 2.0, 7), (2, 0.5, 1), (2, 0.5, 16)])
-def test_regression_threshold(power, lr, check_every):
-    """T_i = inf: every node's count per round equal to the reference's,
-    whatever the host-read interval ``check_every``."""
+@pytest.mark.parametrize("power,lr,eps", [
+    (1, 2.0, 1e-8), (1, 2.0, 1e-6), (2, 0.5, 1e-8), (2, 0.5, 1e-6)])
+def test_regression_threshold(power, lr, eps):
+    """T_i = inf: every node's count per round equal to the reference's."""
     jp = jconvex.make_overparam_regression(n=20, d=200, m=2, power=power,
                                            seed=0)
     tp = tconvex.make_overparam_regression(n=20, d=200, m=2, power=power,
                                            seed=0)
     w0 = np.full(200, 0.3, np.float32)
-    j = jref.run_alg1(jp.local_losses(), jnp.asarray(w0), lr=lr, T=None,
-                      rounds=4, threshold=1e-8)
-    t = tref.run_alg1(tp.local_losses("cpu"), torch.tensor(w0), lr=lr,
-                      T=None, rounds=4, threshold=1e-8, device="cpu",
-                      check_every=check_every)
+    j, t = both(jp.local_losses(), tp.local_losses("cpu"), w0, lr=lr,
+                T=None, rounds=4, threshold=eps)
     assert_runs_agree(j, t)
 
 
@@ -188,7 +184,21 @@ def test_fig67_rates():
     assert rates[0] < rates[1] < rates[2]
 
 
-def test_check_every_is_validated():
-    with pytest.raises(ValueError, match="check_every"):
-        tref.make_local_threshold(lambda w: w.sum(), 0.1, 1e-3, 10,
-                                  check_every=0)
+@pytest.mark.parametrize("eps", [1e6, 1e-2, 1e-6])
+def test_local_threshold_counts(eps):
+    """One node's T_i = inf run on each Beck–Teboulle loss: the same count
+    as the reference's ``while_loop`` (0 where the start is already at or
+    below eps) and the same iterate."""
+    w0 = np.array([1.5, 0.8], np.float32)
+    for jf, tf in zip(jconvex.beck_teboulle_losses(),
+                      tconvex.beck_teboulle_losses()):
+        jw, jn = jref.make_local_threshold(jf, 0.4, eps, 1000)(
+            jnp.asarray(w0))
+        tw, tn = tref.make_local_threshold(tf, 0.4, eps, 1000)(
+            torch.tensor(w0))
+        print(f"eps {eps:g}: {tn} steps (reference {int(jn)})")
+        assert tn == int(jn)
+        np.testing.assert_allclose(tw.numpy(), np.asarray(jw), rtol=RTOL,
+                                   atol=1e-6)
+    if eps == 1e6:
+        assert tn == 0
