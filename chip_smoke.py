@@ -193,13 +193,57 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``--packed --adaptive-t --t-inner 4 --lr 0.02`` (its second round at
    the controller's T) must each exit 0.
 
+12. the exchange on an unreliable network: fault plans, push_sum, the
+   hierarchical tiers and overlapped delayed mixing, through the port's
+   entry points on the card. First every ``FaultPlan`` mask (active,
+   push, matrix at hops 0-1, edge lanes at hops 0-1 and offsets 0-1) of
+   fault seeds 0-3, rounds 0-63 and G 1, 2, 4, 8, 17, of flat plans and
+   of both tiers of the hierarchical exchange's ``TieredFaultPlan``,
+   made for the card, must equal the CPU's bit for bit. Then a small
+   reference check as in phase 4 (``FAULT_REF``, a paper-mlp reduction,
+   3 rounds on the card with the kernels and on the CPU with the plain
+   versions, the same numpy int8 noise): push_sum sgd at drop 0.1 /
+   stall 0.05, a faulty server (drop 0.1) under adamw with int8 params
+   and int8z moments, the hierarchical ring|push_sum over G 8 / 4 pods at
+   DCN drop 0.075, and overlap on the ring with int8; fp32 paths at rtol
+   1e-5 / atol 1e-6 (adamw params atol 1e-4, as phase 4), int8 paths by
+   phase 4's rule; wire bytes, participation, the mass counters and the
+   round counter equal. Then paper-lenet at full width through
+   ``build_run`` (``FAULT_PLAN``: push_sum sgd and adamw with a bf16 wire
+   at drop 0.05 / stall 0.02, the faulty server adamw int8/int8z, the
+   faulty ring int8 at 2 hops, faulty gossip G 8 momentum bf16, server
+   top-k at drop 0.1 (its residual deferred), the tiers ring|push_sum at
+   DCN drop 0.075 and server|server with an int8 cross-tier codec over G
+   8 / 4 pods, and overlap on the ring int8 under sgd and the server fp32
+   under adamw; 2 rounds each, the counts set to 0 before the first run):
+   every kernel launched as worked out per round (the update kernel T
+   times, ``sq_norm_groups`` twice plus once per error-feedback residual,
+   ``qdq_int8`` once per staged int8 stream and hop, ``codec_mix`` never,
+   no serve or ``ops`` kernel), the wire bytes as worked out from the
+   shapes (``expected_fault_wire``), ``|sum(mass) + sum(backlog_w) - G|
+   <= 1e-3`` on push_sum, ``0 < participation <= 1``, every state buffer
+   finite; each round's fenced time and peak memory logged, one round
+   under ``torch.profiler``. Then the fault and tier benchmarks'
+   headlines at their own settings (``FAULT_BENCH``, ``TIER_BENCH``: the
+   consistent least squares of ``benchmarks/fault_tolerance.py`` and
+   ``benchmarks/tier.py``, numpy data as theirs; the bias cells' x numpy
+   drawn, where the reference draws it with ``jax.random``), printed
+   beside ``BENCH_fault.json`` and ``BENCH_tier.json``: fault margin >= 1
+   and unbias >= 100, tier margin >= 1, cross-tier wire reduction >= 3.5
+   and unbias >= 1e4. Last, ``python -m repro_torch.launch.train`` at
+   paper-mlp's full config with ``--packed`` and ``--comm push_sum
+   --drop-rate 0.05``, ``--comm hierarchical --groups 8 --n-pods 4
+   --drop-rate 0.075`` and ``--comm ring --codec int8 --overlap`` must
+   each exit 0 and print each round's participation.
+
 The line before the last is one JSON object with each kernel's numbers
 (the launches of phases 5 and 8 for the first eight, of phase 10's
 ``ops`` path for the last four; the update kernels and
 ``sq_norm_groups`` also carry phase 11's ``microbatch_launches`` and
-``sync_launches``, each path's own count; ``paged_decode_attention`` and
-``mamba_chunk`` also carry ``device_ms``, the device's time alone at the
-shape of their ``ms``); the last line is ``{"ok": true, "device":
+``sync_launches``, and every kernel phase 12's full-width
+``fault_launches``, each path's own count; ``paged_decode_attention``
+and ``mamba_chunk`` also carry ``device_ms``, the device's time alone at
+the shape of their ``ms``); the last line is ``{"ok": true, "device":
 {...}}``.
 """
 from __future__ import annotations
@@ -2296,21 +2340,22 @@ def _lenet(torch):
 
 def _profiled(torch, label, fn):
     """Run ``fn`` once under torch.profiler: the device's busy share of the
-    fenced call and its device time by kernel."""
+    fenced call and its device time by kernel. Returns what ``fn``
+    returns."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn()
+        out = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
         log(f"profile {label}: the profiler captured no device time")
-        return
+        return out
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     log(f"profile {label}: {wall_ms:.1f} ms fenced (profiler on), device "
         f"busy {busy_ms:.2f} ms = {busy_ms / wall_ms:.1%}, "
@@ -2318,6 +2363,7 @@ def _profiled(torch, label, fn):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"profile:   {e.self_device_time_total / 1e3:8.2f} ms "
             f"x{e.count:<5d} {e.key[:100]}")
+    return out
 
 
 def lenet_threshold(torch, K):
@@ -2622,6 +2668,541 @@ def phase11(torch, K):
     return {"microbatch_launches": micro, "sync_launches": sync}
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the exchange on an unreliable network: fault masks, push_sum,
+# the hierarchical tiers and overlapped delayed mixing
+# ---------------------------------------------------------------------------
+# the mask grid: fault seeds, rounds, hops, circulant offset lanes, G
+MASK_SEEDS, MASK_ROUNDS, MASK_GS = range(4), range(64), (1, 2, 4, 8, 17)
+# the small reference check: (tag, optimizer, lr, optimizer kwargs, G,
+# exchange kwargs); adamw at eps 1e-3 where int8z carries its moments, as
+# in phase 4
+FAULT_REF = [
+    ("push_sum sgd", "sgd", 0.05, {}, 4,
+     dict(topology="push_sum", drop_rate=0.1, stall_rate=0.05)),
+    ("faulty server adamw int8/int8z", "adamw", 1e-3, dict(eps=1e-3), 4,
+     dict(topology="server", codec="int8", moment_codec="int8z",
+          drop_rate=0.1)),
+    ("hierarchical ring|push_sum sgd", "sgd", 0.05, {}, 8,
+     dict(topology="hierarchical", n_pods=4, drop_rate=0.075)),
+    ("overlap ring int8 sgd", "sgd", 0.05, {}, 4,
+     dict(topology="ring", codec="int8", overlap=True)),
+]
+# phase 12's full-width runs (paper-lenet, 2 x 128 tokens a group, T 4, 2
+# rounds each, through build_run): launcher flags, and per round the
+# launches of qdq_int8 and the error-feedback residuals sq_norm_groups
+# reduces; codec_mix never runs (every stream is staged under a fault
+# plan, on push_sum, the tiers and the overlap encode). "profile": the
+# second round runs under torch.profiler (one run: the profiler's
+# processing of a round's ~28k launches takes 25-50 s).
+FAULT_PLAN = [
+    dict(opt="sgd", lr=0.05, comm="push_sum", drop_rate=0.05,
+         stall_rate=0.02),
+    dict(opt="adamw", lr=1e-3, comm="push_sum", codec="bf16",
+         drop_rate=0.05, stall_rate=0.02, profile=True),
+    dict(opt="adamw", lr=1e-3, comm="server", codec="int8",
+         moment_codec="int8z", drop_rate=0.1, qdq_int8=3),
+    dict(opt="sgd", lr=0.05, comm="ring", codec="int8", mix_rounds=2,
+         drop_rate=0.1, qdq_int8=2),
+    dict(opt="momentum", lr=0.05, groups=8, comm="gossip", codec="bf16",
+         drop_rate=0.1),
+    dict(opt="sgd", lr=0.05, comm="server", codec="topk", drop_rate=0.1,
+         residuals=1),
+    dict(opt="sgd", lr=0.05, groups=8, comm="hierarchical", n_pods=4,
+         drop_rate=0.075),
+    dict(opt="sgd", lr=0.05, groups=8, comm="hierarchical", n_pods=4,
+         intra_topology="server", inter_topology="server",
+         inter_codec="int8", qdq_int8=1),
+    dict(opt="sgd", lr=0.05, comm="ring", codec="int8", overlap=True,
+         qdq_int8=1),
+    dict(opt="adamw", lr=1e-3, comm="server", overlap=True),
+]
+FAULT_FLAGS = ("comm", "codec", "moment_codec", "mix_rounds", "drop_rate",
+               "stall_rate", "overlap", "n_pods", "intra_topology",
+               "inter_topology", "inter_codec")
+# the convex headlines' settings: benchmarks/fault_tolerance.py:60-66
+# (G 4, D 400, lr 0.4, T 16, 120 rounds, bias at 5% drop with fault seed
+# 2 over 60 iterations) and benchmarks/tier.py:68-80 (G 8 over 4 pods,
+# DCN loss 0.075; the same D, lr, T, rounds and bias cell), with their
+# bars and floors
+FAULT_BENCH = dict(G=4, D=400, lr=0.4, T=16, rounds=120, drop=0.05,
+                   floor=1e-10, bias_seed=2, bias_iters=60, unbias_bar=100)
+TIER_BENCH = dict(G=8, pods=4, D=400, lr=0.4, T=16, rounds=120, drop=0.075,
+                  floor=1e-7, bias_seed=2, bias_iters=60, unbias_bar=1e4,
+                  wire_bar=3.5)
+
+
+def _all_counts(K):
+    """Every kernel's launch count, by the ``kernels`` line's names."""
+    c = dict(_update_counts(K), **K.exchange_epilogue.launches,
+             **K.quantize.launches)
+    c.update(flash_attention=K.flash_attention.launches,
+             paged_decode_attention=K.decode_attention.launches,
+             rmsnorm=K.rmsnorm.launches, mamba_chunk=K.mamba_scan.launches)
+    return c
+
+
+def _zero_all_counts(K):
+    from repro_torch.kernels import (decode_attention,  # noqa: F401
+                                     flash_attention, mamba_scan, quantize,
+                                     rmsnorm)
+    _zero_update_counts(K)
+    for d in (K.exchange_epilogue.launches, K.quantize.launches):
+        for k in d:
+            d[k] = 0
+    for m in (K.flash_attention, K.decode_attention, K.rmsnorm,
+              K.mamba_scan):
+        m.launches = 0
+
+
+def numpy_noise(seed):
+    """int8 noise from numpy, per (seed, count): the same bits on the card
+    and on the CPU."""
+    import numpy as np
+
+    def fn(count, shape):
+        return np.random.default_rng([seed, count]).random(shape,
+                                                           dtype=np.float32)
+    return fn
+
+
+def fault_masks(torch):
+    """Phase 12, part 1: every FaultPlan mask of the grid, copied to the
+    card as the exchange copies them, equal to the CPU's bit for bit; flat
+    plans and the tiers of the hierarchical exchange's TieredFaultPlan."""
+    from repro_torch.comm import faults, get_exchange
+
+    t0 = time.perf_counter()
+    dev, host = [], []
+    for seed in MASK_SEEDS:
+        kw = dict(drop_rate=(0.05, 0.1, 0.3, 1 / 3)[seed],
+                  stall_rate=(0.0, 0.05, 0.2, 0.02)[seed],
+                  dropouts=((1, 3, 9), (0, 0, 64))[:seed % 3])
+        tiered = get_exchange("hierarchical", "fp32", 4, n_pods=2,
+                              fault_seed=seed, intra_drop_rate=0.1,
+                              intra_stall_rate=0.05, **kw).fault_plan
+        for plan in (faults.FaultPlan(seed=seed, **kw), tiered.intra,
+                     tiered.inter):
+            for rnd in MASK_ROUNDS:
+                for n in MASK_GS:
+                    masks = [plan.active_mask(rnd, n), plan.push_mask(rnd, n)]
+                    for h in (0, 1):
+                        masks.append(plan.matrix_mask(rnd, h, n))
+                        masks += [plan.edge_mask(rnd, h, o, n) for o in (0, 1)]
+                    host += [torch.as_tensor(m).reshape(-1) for m in masks]
+                    dev += [torch.as_tensor(m, device="cuda").reshape(-1)
+                            for m in masks]
+    got = torch.cat(dev).cpu()
+    want = torch.cat(host)
+    if not torch.equal(got, want):
+        fail(f"fault masks: the card's differ from the CPU's at "
+             f"{int((got != want).sum())} of {want.numel()} entries")
+    log(f"fault masks: {len(dev)} masks ({want.numel()} entries; seeds "
+        f"{list(MASK_SEEDS)}, rounds 0-{MASK_ROUNDS[-1]}, hops 0-1, offsets "
+        f"0-1, G {MASK_GS}; flat and both tiers) equal on the card and the "
+        f"CPU; drop share {1 - float(want.mean()):.4f}; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def fault_reference_check(torch):
+    """Phase 12, part 2: the packed round under faults, push_sum, the tiers
+    and overlap on a paper-mlp reduction, on the card with the kernels and
+    on the CPU with the plain versions, from the same params, batches and
+    numpy int8 noise, 3 rounds each. fp32 paths: params, moments and the
+    metrics at rtol 1e-5 / atol 1e-6 (adamw params atol 1e-4, as phase 4:
+    a near-zero gradient's step is ~lr whatever its size). int8 paths:
+    phase 4's rule (all but 1% of the elements within rtol 1e-4, all
+    within 2e-3; metrics rtol 2e-3): a last-bit difference between the
+    card's and the CPU's gradients can move an int8 rounding by one
+    quantum. Wire bytes, participation, the mass counters and the round
+    counter equal."""
+    from repro_torch import comm, optim, tree
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import localsgd as lsgd
+    from repro_torch.data.synthetic import TokenPipeline
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import packing
+
+    cfg = get_config("paper-mlp").reduced()
+    model = build_model(cfg, schedule="rect")
+    params = model.init(torch.Generator().manual_seed(7))
+    layout = packing.layout_of(params)
+    for tag, name, lr, okw, G, ekw in FAULT_REF:
+        lossy = ekw.get("codec", "fp32") == "int8"
+        lcfg = lsgd.LocalSGDConfig(n_groups=G, inner_steps=3)
+        pipe = TokenPipeline(cfg.vocab_size, 32, seed=7).batches((G, 2))
+        batches = [torch.as_tensor(next(pipe)["tokens"]) for _ in range(3)]
+        out = {}
+        for dev in ("cpu", "cuda"):
+            opt = optim.get(name, lr, packed=True, **okw)
+            ex = comm.get_exchange(n_groups=G, noise_hook=numpy_noise,
+                                   fault_seed=3, **ekw)
+            rnd = lsgd.make_local_round(model.loss, opt, lcfg, layout=layout,
+                                        exchange=ex)
+            state = lsgd.init_state(tree.tree_map(lambda x: x.to(dev),
+                                                  params),
+                                    opt, G, layout, exchange=ex)
+            ms = []
+            for b in batches:
+                state, m = rnd(state, {"tokens": b.to(dev)})
+                ms.append({k: v.cpu() if isinstance(v, torch.Tensor) else v
+                           for k, v in m.items()})
+            bufs = {"params": state["params"].cpu()}
+            bufs.update({k: state["opt"][k].cpu() for k in opt.moment_keys})
+            bufs.update({f"inflight/{k}": v.cpu() for k, v in
+                         state["comm"].get("inflight", {}).items()})
+            comm_ = {k: state["comm"][k].cpu() for k in
+                     ("round", "mass", "backlog_w") if k in state["comm"]}
+            out[dev] = (bufs, ms, comm_)
+        for k, want in out["cpu"][0].items():
+            got = out["cuda"][0][k]
+            atol = 1e-4 if (k == "params" and name == "adamw") else 1e-6
+            if not lossy:
+                err = compare(f"{tag} {k} (cuda vs cpu)", got, want,
+                              rtol=1e-5, atol=atol)
+                log(f"fault reference check: {tag} {k}: max abs err "
+                    f"{err:.3e}")
+                continue
+            off = (got - want).abs() > atol + 1e-4 * want.abs()
+            err = compare(f"{tag} {k} (cuda vs cpu)", got, want, rtol=0.0,
+                          atol=2e-3)
+            frac = off.double().mean().item()
+            if frac > 0.01:
+                fail(f"{tag} {k}: {frac:.2%} of the elements differ beyond "
+                     "rtol 1e-4 (allowed 1%)")
+            log(f"fault reference check: {tag} {k}: max abs err {err:.3e}, "
+                f"{frac:.4%} of the elements beyond rtol 1e-4")
+        for n, (mc, mg) in enumerate(zip(out["cpu"][1], out["cuda"][1])):
+            for k in ("loss", "grad_sq", "consensus_sq", "consensus_sq_post"):
+                compare(f"{tag} round {n} {k} (cuda vs cpu)", mg[k], mc[k],
+                        rtol=2e-3 if lossy else 1e-5, atol=1e-6)
+            for k, v in mc.items():
+                if (k.startswith(("wire_bytes", "participation",
+                                  "delivery_rate")) and not
+                        bool(torch.equal(torch.as_tensor(v),
+                                         torch.as_tensor(mg[k])))):
+                    fail(f"{tag} round {n} {k}: {v} on the CPU, {mg[k]} on "
+                         "the card")
+        for k, v in out["cpu"][2].items():
+            if not torch.equal(v, out["cuda"][2][k]):
+                fail(f"{tag} comm[{k!r}]: {v} on the CPU, "
+                     f"{out['cuda'][2][k]} on the card")
+        log(f"fault reference check: {tag} on the card agrees with the CPU "
+            f"(participation {[float(m['participation']) for m in out['cuda'][1]]})")
+
+
+def expected_fault_wire(run, n):
+    """A phase-12 round's wire bytes from the shapes. push_sum: one (value,
+    weight) payload per directed ring edge (offsets 1 and G-1) per hop,
+    priced at the delivery rate (1 - drop)(1 - stall)^2, the params
+    payload 4 bytes longer (the weight counter), each edge counted once.
+    Hierarchical, G over P pods of s: the pod ring's edges (1 offset at s
+    2, 2 above) per hop, or each member's push and the pod mean's reply
+    (server); across pods, one leader payload per pod per pod-ring edge
+    at the DCN delivery rate (push_sum, +4 bytes), or each leader's push
+    and reply (server), through the cross-tier codec. The flat faulty
+    topologies and overlap: phase 5's count (a dropped push is priced as
+    an attempt)."""
+    if run["comm"] not in ("push_sum", "hierarchical"):
+        return expected_wire(run, n)
+
+    def width(codec):
+        return {"fp32": 4 * n, "fp16": 2 * n, "bf16": 2 * n,
+                "int8": n + 4 * -(-n // 256)}[codec]
+
+    g = run.get("groups", 4)
+    codecs_ = ([run.get("codec", "fp32")]
+               + [run.get("moment_codec", "fp32")] * MOMENTS[run["opt"]])
+    deliv = (1 - run.get("drop_rate", 0.0)) * (1 - run.get("stall_rate",
+                                                           0.0)) ** 2
+    if run["comm"] == "push_sum":
+        edges = 2 * g * run.get("mix_rounds", 1) * deliv
+        return sum(round(edges * (width(c) + (4 if i == 0 else 0)))
+                   for i, c in enumerate(codecs_))
+    pods = run["n_pods"]
+    s = g // pods
+    if run.get("intra_topology", "ring") == "server":
+        intra = sum(2 * round(g * width(c)) for c in codecs_)
+    else:
+        sends = g * (1 if s == 2 else 2) * run.get("mix_rounds", 1)
+        intra = sum(round(sends * width(c)) for c in codecs_)
+    xcodecs = [run.get("inter_codec") or c for c in codecs_]
+    if run.get("inter_topology", "push_sum") == "server":
+        inter = sum(2 * round(pods * width(c)) for c in xcodecs)
+    else:
+        sends = (1 if pods == 2 else 2) * pods * deliv
+        inter = sum(round(sends * (width(c) + (4 if i == 0 else 0)))
+                    for i, c in enumerate(xcodecs))
+    return intra + inter
+
+
+def fault_path(torch, K):
+    """Phase 12, part 3: paper-lenet at full width through the launcher's
+    builder under each FAULT_PLAN run, 2 rounds each, with the launches
+    counted from 0 before the first run. Returns every kernel's launches
+    over the part."""
+    from repro_torch.data.synthetic import TokenPipeline
+    from repro_torch.launch.train import build_run
+
+    T, per_group, seq = 4, 2, 128
+    _zero_all_counts(K)
+    expected = dict.fromkeys(_all_counts(K), 0)
+    for run in FAULT_PLAN:
+        opt, G = run["opt"], run.get("groups", 4)
+        flags = {k: run[k] for k in FAULT_FLAGS if k in run}
+        tag = f"{opt} {flags}"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cfg, _, layout, rnd, state, _, _, ex = build_run(
+            "paper-lenet", groups=G, t_inner=T, opt=opt, lr=run["lr"],
+            seed=0, device="cuda", fault_seed=1, **flags)
+        if layout.size != MAIN[1]:
+            fail(f"paper-lenet packs to {layout.size}, expected {MAIN[1]}")
+        wire = expected_fault_wire(run, layout.size)
+        tokens = next(TokenPipeline(cfg.vocab_size, seq, seed=0).batches(
+            (G, per_group)))["tokens"]
+        batch = {"tokens": torch.as_tensor(tokens, device="cuda")}
+        for n in range(2):
+            before = _all_counts(K)
+            profiled = run.get("profile") and n == 1
+            if profiled:
+                # the round alone is timed: the profiler's own processing
+                # after it takes longer than the round
+                (state, m), sec = _profiled(
+                    torch, f"fault path {tag} round 1",
+                    lambda: _timed(torch, lambda: rnd(state, batch)))
+            else:
+                (state, m), sec = _timed(torch, lambda: rnd(state, batch))
+            want = dict.fromkeys(before, 0)
+            want[f"fused_{opt}"] = T
+            want["sq_norm_groups"] = 2 + run.get("residuals", 0)
+            want["qdq_int8"] = run.get("qdq_int8", 0)
+            got = {k: v - before[k] for k, v in _all_counts(K).items()}
+            if got != want:
+                fail(f"{tag} round {n}: launches {got}, expected {want}")
+            for k, v in want.items():
+                expected[k] += v
+            if m["wire_bytes"] != wire:
+                fail(f"{tag} round {n}: wire_bytes {m['wire_bytes']}, "
+                     f"expected {wire}")
+            cst = state["comm"]
+            part = float(m["participation"])
+            if not 0.0 < part <= 1.0:
+                fail(f"{tag} round {n}: participation {part}")
+            mass = None
+            if "mass" in cst:
+                mass = float(cst["mass"].sum() + cst["backlog_w"].sum())
+                if abs(mass - G) > 1e-3:
+                    fail(f"{tag} round {n}: sum(mass) + sum(backlog_w) = "
+                         f"{mass!r}, not {G} within 1e-3")
+            bufs = [state["params"]] + [v for k, v in state["opt"].items()
+                                        if k != "count"]
+            bufs += list(cst.get("backlog", {}).values())
+            bufs += list(cst.get("inflight", {}).values())
+            if not all(bool(torch.isfinite(b).all()) for b in bufs):
+                fail(f"{tag} round {n}: a state buffer is not finite")
+            if not bool(torch.isfinite(m["loss"]).all()):
+                fail(f"{tag} round {n}: loss {m['loss'].tolist()}")
+            log(f"fault path {ex.name} {opt} G {G} round {n}: {sec:.4f} s "
+                f"fenced{' (profiler on)' if profiled else ''}, loss "
+                f"{m['loss'].mean().item():.4f}, participation {part:.4f} "
+                f"(intra {float(m['participation_intra']):.4f}, inter "
+                f"{float(m['participation_inter']):.4f}), mass {mass!r}, "
+                f"backlog {float(m['backlog_mass']):.4e}, cons "
+                f"{m['consensus_sq'].sum().item():.4e} -> "
+                f"{m['consensus_sq_post'].sum().item():.4e}, wire "
+                f"{m['wire_bytes']:,} B, peak memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del state, rnd
+        torch.cuda.empty_cache()
+    total = _all_counts(K)
+    log(f"fault path launches {total} (expected {expected})")
+    if total != expected:
+        fail(f"fault path launch counts {total} != expected {expected}")
+    return total
+
+
+def _feasibility(np, G, D, rows=20, seed=0):
+    """The reference benchmarks' make_feasibility, in numpy: consistent
+    least squares over G nodes. As there, A and b are formed in float64
+    (a float32 draw over numpy's float64 sqrt) and stored as float32."""
+    rng = np.random.RandomState(seed)
+    A = rng.randn(G, rows, D).astype(np.float32) / np.sqrt(D)
+    w_star = rng.randn(D).astype(np.float32)
+    b = np.einsum("grd,d->gr", A, w_star)
+    return ({"w": rng.randn(D).astype(np.float32)},
+            {"A": A.astype(np.float32), "b": b.astype(np.float32)})
+
+
+def _quad_loss(params, batch):
+    r = batch["A"] @ params["w"] - batch["b"]
+    return 0.5 * (r * r).sum()
+
+
+def _convex_cell(torch, np, c, **ekw):
+    """One packed sgd cell of the feasibility problem on the card: mean
+    grad_sq after ``c["rounds"]`` rounds of T local steps."""
+    from repro_torch import bridge, comm, optim
+    from repro_torch.core import localsgd as lsgd
+    from repro_torch.optim import packing
+
+    params, batch = _feasibility(np, c["G"], c["D"])
+    p = bridge.params_from_numpy(params, "cuda")
+    b = bridge.params_from_numpy(batch, "cuda")
+    layout = packing.layout_of(p)
+    opt = optim.packed("sgd", c["lr"])
+    ex = comm.get_exchange(n_groups=c["G"], **ekw)
+    rnd = lsgd.make_local_round(_quad_loss, opt, lsgd.LocalSGDConfig(
+        n_groups=c["G"], inner_steps=c["T"]), layout=layout, exchange=ex)
+    st = lsgd.init_state(p, opt, c["G"], layout, exchange=ex)
+    for _ in range(c["rounds"]):
+        st, m = rnd(st, b)
+    return float(m["grad_sq"].mean()), ex
+
+
+def _bias(torch, np, G, iters, cells):
+    """Mixing-only consensus of numpy-drawn x (randn(G, 20) * 3, seed 0;
+    the reference draws its x with jax.random, which cannot be
+    reproduced) through each exchange's params map on the card: the max
+    drift of the mean."""
+    from repro_torch import comm
+
+    x = np.random.RandomState(0).randn(G, 20).astype(np.float32) * 3
+    out = {}
+    for tag, kw in cells.items():
+        ex = comm.get_exchange(n_groups=G, **kw)
+        y = torch.tensor(x, device="cuda")
+        st = ex.init(y)
+        for _ in range(iters):
+            y, st = ex.params(y, None, st)
+        o = y.cpu().numpy()
+        out[tag] = float(np.abs(o.mean(0) - x.mean(0)).max())
+    return out
+
+
+def convex_headlines(torch):
+    """Phase 12, part 4: the fault and tier benchmarks' headlines on the
+    card, at their own settings (FAULT_BENCH, TIER_BENCH), beside the
+    committed BENCH_fault.json and BENCH_tier.json values; each bar must
+    hold."""
+    import numpy as np
+
+    ref = {}
+    for key, name in (("fault", "BENCH_fault.json"),
+                      ("tier", "BENCH_tier.json")):
+        with open(os.path.join(ROOT, name)) as f:
+            ref[key] = json.load(f)["headline"]
+    c = FAULT_BENCH
+    (gsq0, _), s0 = _timed(torch, lambda: _convex_cell(
+        torch, np, c, topology="server", fault_seed=0))
+    (gsq5, ex5), s5 = _timed(torch, lambda: _convex_cell(
+        torch, np, c, topology="push_sum", drop_rate=c["drop"],
+        fault_seed=0))
+    margin = 10.0 * max(gsq0, c["floor"]) / max(gsq5, c["floor"])
+    bias = _bias(torch, np, c["G"], c["bias_iters"], {
+        t: dict(topology=t, drop_rate=c["drop"], fault_seed=c["bias_seed"])
+        for t in ("gossip", "push_sum")})
+    unbias = bias["gossip"] / max(bias["push_sum"], 1e-12)
+    r = ref["fault"]
+    log(f"fault headline: lossless gsq {gsq0:.4e} ({s0:.1f} s), push_sum "
+        f"at {c['drop']} gsq {gsq5:.4e} ({s5:.1f} s, {ex5.name}) -> margin "
+        f"{margin:.4f} (bar 1; BENCH_fault.json {r['push_sum_gsq_margin']}, "
+        f"gsq {r['lossless_gsq']:.4e} / {r['push_sum_gsq']:.4e}); bias "
+        f"gossip {bias['gossip']:.4e} push_sum {bias['push_sum']:.4e} -> "
+        f"unbias {unbias:.1f} (bar {c['unbias_bar']}; BENCH_fault.json "
+        f"{r['push_sum_unbias_factor']:.1f}, gossip "
+        f"{r['gossip_bias_at_5pct']:.4e})")
+    c = TIER_BENCH
+    hier = dict(topology="hierarchical", n_pods=c["pods"])
+    (gsq0, _), s0 = _timed(torch, lambda: _convex_cell(
+        torch, np, c, fault_seed=0, **hier))
+    (gsqx, exx), sx = _timed(torch, lambda: _convex_cell(
+        torch, np, c, drop_rate=c["drop"], fault_seed=0, **hier))
+    tmargin = 10.0 * max(gsq0, c["floor"]) / max(gsqx, c["floor"])
+    from repro_torch import comm
+    ss = dict(hier, intra_topology="server", inter_topology="server")
+    bt_f = comm.get_exchange(n_groups=c["G"], **ss).wire_bytes_by_tier(
+        c["D"])
+    bt_q = comm.get_exchange(n_groups=c["G"], inter_codec="int8",
+                             **ss).wire_bytes_by_tier(c["D"])
+    wire = bt_f["inter"] / bt_q["inter"]
+    tbias = _bias(torch, np, c["G"], c["bias_iters"], {
+        "gossip": dict(topology="gossip", drop_rate=c["drop"],
+                       fault_seed=c["bias_seed"]),
+        "hier": dict(drop_rate=c["drop"], fault_seed=c["bias_seed"],
+                     **hier)})
+    tunbias = tbias["gossip"] / max(tbias["hier"], 1e-12)
+    r = ref["tier"]
+    log(f"tier headline: lossless gsq {gsq0:.4e} ({s0:.1f} s), DCN loss "
+        f"{c['drop']} gsq {gsqx:.4e} ({sx:.1f} s, {exx.name}) -> margin "
+        f"{tmargin:.4f} (bar 1; BENCH_tier.json {r['tier_gsq_margin']}, "
+        f"gsq {r['lossless_gsq']:.4e} / {r['dcn_loss_gsq']:.4e}); inter "
+        f"wire {bt_f['inter']:,} -> {bt_q['inter']:,} B = {wire:.4f}x (bar "
+        f"{c['wire_bar']}; BENCH_tier.json "
+        f"{r['cross_tier_wire_reduction']:.4f}); bias gossip "
+        f"{tbias['gossip']:.4e} tiered {tbias['hier']:.4e} -> unbias "
+        f"{tunbias:.1f} (bar {c['unbias_bar']:g}; BENCH_tier.json "
+        f"{r['tier_unbias_factor']:.1f})")
+    bars = {"fault margin": margin >= 1.0,
+            "fault unbias": unbias >= FAULT_BENCH["unbias_bar"],
+            "tier margin": tmargin >= 1.0, "tier wire": wire >= c["wire_bar"],
+            "tier unbias": tunbias >= c["unbias_bar"]}
+    if not all(bars.values()):
+        fail(f"convex headlines: bars {bars}")
+
+
+def fault_launcher_runs(torch):
+    """Phase 12, part 5: the train launcher at paper-mlp's full config with
+    push_sum under drops, the tiers over a lossy DCN and the overlapped
+    ring with int8; each must exit 0 and print its participation."""
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+            "paper-mlp", "--rounds", "2", "--packed"]
+    runs = {"push_sum": ["--comm", "push_sum", "--drop-rate", "0.05"],
+            "hierarchical": ["--comm", "hierarchical", "--groups", "8",
+                             "--n-pods", "4", "--drop-rate", "0.075"],
+            "overlap": ["--comm", "ring", "--codec", "int8", "--overlap"]}
+    env = dict(os.environ, PYTHONPATH=SRC)
+    procs = {k: subprocess.Popen(base + v, cwd=ROOT, env=env,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+             for k, v in runs.items()}
+    try:
+        for k, p in procs.items():
+            out, err = p.communicate(timeout=300)
+            for line in out.splitlines():
+                log(f"launcher {k}: {line}")
+            if p.returncode != 0:
+                fail(f"launcher {k} {runs[k]} exited {p.returncode}: "
+                     f"{err[-2000:]}")
+            if sum(" part " in l for l in out.splitlines()) != 2:
+                fail(f"launcher {k}: no participation in its round lines")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+
+
+def phase12(torch, K):
+    """Phase 12: the exchange on an unreliable network. Returns the full-
+    width part's launches, as ``fault_launches``."""
+    t0 = time.perf_counter()
+
+    def part(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        log(f"phase 12 {name}: {time.perf_counter() - t:.1f} s")
+        return out
+
+    part("masks", lambda: fault_masks(torch))
+    part("reference check", lambda: fault_reference_check(torch))
+    counts = part("full width", lambda: fault_path(torch, K))
+    part("convex headlines", lambda: convex_headlines(torch))
+    part("launchers", lambda: fault_launcher_runs(torch))
+    log(f"phase 12: {time.perf_counter() - t0:.1f} s")
+    return {"fault_launches": counts}
+
+
 def _kernel_name(mangled):
     """A ptxas entry name, short: the kernel's name after its namespace
     and its raw template arguments (``paged_decode_kernel ILi64ELi1EE``:
@@ -2651,7 +3232,8 @@ def main() -> int:
     sys.path.insert(0, SRC)
     from repro_torch import kernels as K
     # the wrapper modules, reached below as attributes of K
-    from repro_torch.kernels import (build, exchange_epilogue,  # noqa: F401
+    from repro_torch.kernels import (build, decode_attention,  # noqa: F401
+                                     exchange_epilogue, flash_attention,
                                      fused_adamw, fused_momentum, fused_sgd,
                                      mamba_scan, quantize, ref, rmsnorm,
                                      sq_norm)
@@ -2712,6 +3294,7 @@ def main() -> int:
     check_last_four(torch, results)
     counts.update(ops_path(torch))
     by_path = phase11(torch, K)
+    by_path.update(phase12(torch, K))
 
     # again at the end, where a tail of the output still holds them
     log(built)

@@ -25,8 +25,8 @@ rows_shape) -> u`` hook replaces the generator: the parity tests feed
 the reference's own bits through it. On a CUDA buffer the quantize +
 decode core launches the ``qdq_int8`` kernel.
 
-``defer_undelivered`` (error feedback under packet loss) waits for the
-fault plans (ROADMAP.md Queue A item 4).
+``defer_undelivered`` keeps error feedback honest under packet loss: a
+dropped push's shipped entries go back into its residual.
 """
 from __future__ import annotations
 
@@ -191,6 +191,19 @@ def topk(frac: float = 0.05, *, impl: str = "auto") -> Codec:
 
     return Codec("topk", compress, wire_bytes, init, stateful=True,
                  impl=impl, topk_frac=frac)
+
+
+def defer_undelivered(state: dict, d_hat, delivered):
+    """Error feedback under packet loss (DESIGN.md §12): ``compress``
+    already moved the shipped entries out of the residual; where group
+    g's push was dropped (``delivered[g] == 0``, a (G,) float mask on
+    d_hat's device) they go back in, restoring ``residual = c``, and are
+    offered again next round. No-op for a state without a residual
+    (int8's counter advances either way: the noise was spent)."""
+    if "residual" not in state:
+        return state
+    keep = delivered.reshape((-1,) + (1,) * (d_hat.dim() - 1))
+    return {**state, "residual": state["residual"] + (1.0 - keep) * d_hat}
 
 
 CODECS = ("fp32", "fp16", "bf16", "int8", "int8z", "topk")

@@ -1,6 +1,6 @@
 """The round's model exchange (counterpart of ``repro/comm/exchange.py``;
-DESIGN.md §8, §10, §11): a topology over the G axis, a codec per stream,
-and the exact wire accounting.
+DESIGN.md §8, §10-§12, §14, §16): a topology over the G axis, a codec per
+stream, an optional fault plan, and the exact wire accounting.
 
   server       mean over G, broadcast back (with fp32: the same ops as
                ``average_groups``).
@@ -9,34 +9,64 @@ and the exact wire accounting.
   async_stale  server averaging with bounded staleness s: in round n only
                the groups with ``(g + n) % (s + 1) == 0`` push; the server
                averages every group's last push.
+  push_sum     ratio consensus on the directed ring (DESIGN.md §12): each
+               node pushes equal shares of a (value, weight) mass pair and
+               estimates the model as their ratio; per-edge backlogs keep
+               an undelivered share queued for the next delivery, so mass
+               is conserved (to float32 precision) under any loss.
   none         no communication (W = I, zero wire bytes).
+  hierarchical two tiers (DESIGN.md §16): G factors into ``n_pods``
+               contiguous pods; each round mixes within pods
+               (``intra_topology``: a pod-local ring or the pod mean), then
+               across them (``inter_topology``: push_sum over pods, or the
+               mean of the pods' elected leaders), with its own cross-tier
+               codec (``inter_codec``) and a ``TieredFaultPlan``.
 
 The payload is multi-stream: the params plus one stream per optimizer
 moment. ``codec`` applies to the params, ``moment_codec`` to every
 moment; each stream keeps its own codec state under
-``comm_state["codec"][stream]`` and, for async_stale, its own staleness
-buffer (``"pushed"``, ``"pushed_opt"][stream]``). A ``downlink_codec``
-re-encodes the server's (or async's) broadcast as a delta against the
-last decoded broadcast (``comm_state["down"]``).
+``comm_state["codec"][stream]`` and, for async_stale and the faulty
+server, its own staleness buffer (``"pushed"``, ``"pushed_opt"][stream]``).
+A ``downlink_codec`` re-encodes the server's (or async's) broadcast as a
+delta against the last decoded broadcast (``comm_state["down"]``).
+
+Faults (``comm/faults.py``): a ``FaultPlan`` masks the round's
+transmissions from ``(round, seed)`` alone; the round counter rides the
+comm state. server and async_stale fall back to a group's last delivered
+push, an error-feedback residual takes back an undelivered payload
+(``codecs.defer_undelivered``), ring and gossip substitute a receiver's
+own value for a lost payload (rows stay stochastic, the mean drifts: the
+bias push_sum exists to remove), and the round reports the delivered
+fraction as ``participation``. No plan (the default) leaves every path
+as it was. The masks, the round counter, the participation scalars and
+push-sum's weight channel (``mass``, ``backlog_w``) are small and live on
+the host; the value backlogs live beside the params.
+
+Overlap (DESIGN.md §14): ``overlap=True`` mixes the PREVIOUS round's
+encoded payload (``comm_state["inflight"]``, ``mix_inflight``) and
+encodes this round's result for the next (``encode_streams``).
 
 Routing, as in the reference (``_fusable``): int8, fp16 and bf16 on
 server, ring and gossip, and top-k on server, run the fused ``codec_mix``
-kernel (``kernels/exchange_epilogue.py``); int8z, async_stale, top-k on
-ring/gossip and the downlink take the staged codecs (int8's core is the
+kernel (``kernels/exchange_epilogue.py``) on a reliable network; under a
+fault plan, and on async_stale, push_sum, the tiers and the overlap
+encode, every stream takes the staged codecs (int8's core is the
 ``qdq_int8`` kernel).
 
 The exchange works in place where it can: an fp32 stream and a fused
 stream are mixed into the live (G, N) buffer, whose memory the round
-owns. push_sum, hierarchical tiers, fault plans and overlap are not
-ported yet (ROADMAP.md Queue A item 4); ``get_exchange`` refuses them.
+owns, and push-sum's value backlogs are updated in place. What must
+outlive the round (a staleness buffer, an in-flight payload, a backlog)
+is never a view of a live buffer.
 
 The pytree round's streams are trees with a leading G axis: ``mix_tree``
 mixes them leaf by leaf (each leaf viewed as (G, -1)) through the fp32
 wire on server, ring, gossip and none, as the reference's staged path
 does. ``check_tree`` refuses the rest: int8, int8z and top-k need the
-flat buffer (the reference refuses them too), and the tree path's
-fp16/bf16 codecs, lossy downlink and async_stale are not ported yet
-(ROADMAP.md Queue A item 1b).
+flat buffer (the reference refuses them too), overlap needs it as well,
+and the tree path's fp16/bf16 codecs, lossy downlink, async_stale,
+push_sum, the tiers and fault plans are not ported yet (ROADMAP.md Queue
+A item 1b).
 """
 from __future__ import annotations
 
@@ -55,10 +85,14 @@ from repro_torch.kernels.exchange_epilogue import codec_mix
 
 TOPOLOGIES = ("server", "ring", "gossip", "async_stale", "push_sum",
               "none", "hierarchical")
-_NOT_PORTED = "not ported yet (ROADMAP.md Queue A item 4: faults and tiers)"
+
+INTRA_TOPOLOGIES = ("ring", "server")        # pod-internal tier
+INTER_TOPOLOGIES = ("push_sum", "server")    # cross-pod tier
+
 _TREE_NOT_PORTED = ("not ported yet on the pytree round (ROADMAP.md Queue A "
-                    "item 1b: the pytree round's lossy codecs and "
-                    "async_stale); run it with a packed layout")
+                    "item 1b: the pytree round's lossy codecs, async_stale, "
+                    "push_sum, tiers and faults); run it with a packed "
+                    "layout")
 # codecs whose wire format is the packed (G, N) buffer (the reference's
 # flat_only codecs)
 _FLAT_ONLY = ("int8", "int8z", "topk")
@@ -79,6 +113,69 @@ def _tensordot_w(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.tensordot(w, x, dims=([1], [0]))
 
 
+def _f32(x) -> torch.Tensor:
+    """A host float32 scalar (participation, a mean of masks)."""
+    return torch.tensor(np.float32(x))
+
+
+def _mask_mean(m: np.ndarray) -> np.float32:
+    """The float32 mean of a 0/1 mask: its (exact) sum over its size."""
+    return np.float32(m.sum(dtype=np.float32)) / np.float32(m.size)
+
+
+def _col(m: np.ndarray, device) -> torch.Tensor:
+    """A (G,) host mask as a (G, 1) float32 column on ``device``."""
+    return torch.as_tensor(np.asarray(m, np.float32).reshape(-1, 1),
+                           device=device)
+
+
+def elect_leaders(act, n_pods: int):
+    """Pod leaders from a (G,) liveness mask (DESIGN.md §16): the leader
+    of each contiguous pod is its first live member, pure in the mask.
+    Returns ``(leader_w, pod_live)`` as float32 numpy arrays: ``leader_w``
+    (G,) one-hot per pod (all zero for a dead pod), ``pod_live``
+    (n_pods,) (a pod is live while any member is)."""
+    a = np.asarray(act, np.float32).reshape(n_pods, -1)
+    pod_live = a.max(axis=1)
+    onehot = np.zeros_like(a)
+    onehot[np.arange(n_pods), a.argmax(axis=1)] = 1.0
+    return (onehot * pod_live[:, None]).reshape(-1), pod_live
+
+
+def _push_sum_weights(w, blw, a, act, shifts, incs, masks):
+    """One push-sum hop of the weight channel, on the host in float32 (the
+    reference's ops in its order): ``(mass', backlog_w')``."""
+    a = np.float32(a)
+    new_w = np.where(act > 0, a * w, w)
+    new_blw = []
+    for di, sh in enumerate(shifts):
+        b = blw[di] + incs[di] * np.roll(a * w, sh)
+        new_w = new_w + masks[di] * b
+        new_blw.append(b - masks[di] * b)
+    return new_w, np.stack(new_blw)
+
+
+def _push_sum_hop(x, bl, a, act, shifts, incs, masks, codec):
+    """One push-sum hop of one (G, N) value stream: each live node keeps
+    ``a * x`` and adds every delivered edge's whole queue; ``bl`` (the
+    per-offset backlogs) is updated in place. ``act``, ``incs[di]`` and
+    ``masks[di]`` are (G, 1) columns. A cast codec quantizes what is
+    transmitted and its residue stays queued."""
+    ax = a * x
+    y = torch.where(act > 0, ax, x)
+    for di, sh in enumerate(shifts):
+        r = torch.roll(ax, sh, 0)
+        r.mul_(incs[di])
+        bl[di].add_(r)
+        del r
+        t = bl[di] if codec.identity else codec.compress(bl[di], {})[0]
+        mt = masks[di] * t
+        del t
+        y.add_(mt)
+        bl[di].sub_(mt)
+    return y
+
+
 @dataclasses.dataclass(frozen=True)
 class Exchange:
     topology: str
@@ -87,7 +184,7 @@ class Exchange:
     mix_rounds: int = 1
     staleness: int = 0
     # (G, G) doubly-stochastic mixing matrix; None = exact mean (server,
-    # async) or identity (none)
+    # async, push_sum's codec-free mix) or identity (none)
     w: Optional[np.ndarray] = None
     # codec of every moment stream (None -> fp32)
     moment_codec: Optional[codecs_mod.Codec] = None
@@ -97,76 +194,205 @@ class Exchange:
     # route int8/fp16/bf16 (and server top-k) streams through the fused
     # codec_mix epilogue; False = the staged codecs
     fused: bool = True
+    # the fault schedule (a TieredFaultPlan on the hierarchical
+    # topology); None = the reliable network
+    fault_plan: Optional[object] = None
+    # delayed mixing: mix the previous round's in-flight payload
+    overlap: bool = False
+    # hierarchical: G = n_pods x pod_size (0 = not hierarchical), the tier
+    # topologies and the cross-tier codec (None -> each stream's own)
+    n_pods: int = 0
+    intra_topology: str = "ring"
+    inter_topology: str = "push_sum"
+    inter_codec: Optional[codecs_mod.Codec] = None
 
     @property
     def mcodec(self) -> codecs_mod.Codec:
         return self.moment_codec if self.moment_codec is not None else _FP32
 
     @property
+    def hierarchical(self) -> bool:
+        return self.topology == "hierarchical"
+
+    @property
+    def pod_len(self) -> int:
+        """Members per pod (the validated tier factoring)."""
+        return topo_mod.pod_size(self.n_groups, self.n_pods)
+
+    @property
+    def intra_plan(self) -> Optional[faults_mod.FaultPlan]:
+        p = self.fault_plan
+        return p.intra if isinstance(p, faults_mod.TieredFaultPlan) else None
+
+    @property
+    def inter_plan(self) -> Optional[faults_mod.FaultPlan]:
+        p = self.fault_plan
+        return p.inter if isinstance(p, faults_mod.TieredFaultPlan) else None
+
+    def inter_stream_codec(self, stream: str) -> codecs_mod.Codec:
+        """The codec a stream crosses the pods with: ``inter_codec`` when
+        set, else the stream's own."""
+        return (self.inter_codec if self.inter_codec is not None
+                else self.stream_codec(stream))
+
+    @property
+    def faulty(self) -> bool:
+        """True when a fault plan is active on a topology with a wire."""
+        return self.fault_plan is not None and self.topology != "none"
+
+    @property
     def delivery_rate(self) -> float:
-        return 1.0           # the reliable network
+        """Expected fraction of transmissions delivered per round (1.0 on
+        the reliable network)."""
+        return (self.fault_plan.expected_delivery
+                if self.fault_plan is not None else 1.0)
+
+    @property
+    def delivery_rate_intra(self) -> float:
+        """The pod-internal tier's delivery rate; a flat topology is one
+        tier, so there it is ``delivery_rate``."""
+        if not self.hierarchical:
+            return self.delivery_rate
+        p = self.fault_plan
+        return (p.expected_delivery_intra
+                if isinstance(p, faults_mod.TieredFaultPlan) else 1.0)
+
+    @property
+    def delivery_rate_inter(self) -> float:
+        """The cross-pod tier's delivery rate (1.0 on a flat topology)."""
+        if not self.hierarchical:
+            return 1.0
+        p = self.fault_plan
+        return (p.expected_delivery_inter
+                if isinstance(p, faults_mod.TieredFaultPlan) else 1.0)
 
     @property
     def p2p(self) -> bool:
-        """Explicit-W mixing: one edge payload is the sender's uplink and
-        the receiver's downlink, counted once."""
-        return self.w is not None
+        """Explicit-W mixing and push_sum: one edge payload is the
+        sender's uplink and the receiver's downlink, counted once."""
+        return self.w is not None or self.topology == "push_sum"
 
     @property
     def lossy_downlink(self) -> bool:
         return (self.downlink_codec is not None
                 and not self.downlink_codec.identity
-                and self.w is None and self.topology != "none")
+                and self.w is None
+                and self.topology not in ("none", "push_sum",
+                                          "hierarchical"))
 
     def stream_codec(self, stream: str) -> codecs_mod.Codec:
         """params get ``codec``, every moment stream ``moment_codec``."""
         return self.codec if stream == "params" else self.mcodec
 
     def lossy_stream(self, stream: str) -> bool:
-        """True when ``stream``'s codec encodes a round delta, so the
-        round must keep its round-start value."""
-        return not self.stream_codec(stream).identity
+        """True when a codec on ``stream``'s path encodes a round delta
+        (its own, or the cross-tier codec of the server inter tier), so
+        the round must keep its round-start value."""
+        if not self.stream_codec(stream).identity:
+            return True
+        return (self.hierarchical and self.inter_topology == "server"
+                and not self.inter_stream_codec(stream).identity)
 
     @property
     def name(self) -> str:
-        base = f"{self.topology}/{self.codec.name}"
+        if self.hierarchical:
+            base = (f"hier[{self.intra_topology}x{self.n_pods}"
+                    f"|{self.inter_topology}]/{self.codec.name}")
+        else:
+            base = f"{self.topology}/{self.codec.name}"
         if not self.mcodec.identity:
             base += f"+m:{self.mcodec.name}"
+        if self.inter_codec is not None:
+            base += f"+x:{self.inter_codec.name}"
         if self.downlink_codec is not None:
             base += f"+d:{self.downlink_codec.name}"
+        if self.faulty:
+            p = self.fault_plan
+            if isinstance(p, faults_mod.TieredFaultPlan):
+                tags = []
+                if p.intra is not None:
+                    tags.append(f"i{p.intra.drop_rate:g}@{p.intra.seed}")
+                if p.inter is not None:
+                    tags.append(f"x{p.inter.drop_rate:g}@{p.inter.seed}")
+                base += "+drop[" + ",".join(tags) + "]"
+            else:
+                base += f"+drop{p.drop_rate:g}@{p.seed}"
+        if self.overlap:
+            base += "+ov"
         return base
 
     @property
     def stateful(self) -> bool:
         if self.topology == "none":
             return False     # no wire: the codecs never run, no state
-        return (self.topology == "async_stale" or self.codec.stateful
-                or self.mcodec.stateful or self.lossy_downlink)
+        if self.overlap or self.hierarchical:
+            return True      # the in-flight payload; the round counter
+        return (self.topology in ("async_stale", "push_sum")
+                or self.codec.stateful or self.mcodec.stateful
+                or self.lossy_downlink or self.faulty)
 
     # -- state ------------------------------------------------------------
 
     def init(self, params_G, moments: Optional[dict] = None) -> dict:
         """Comm state for the (G, N) params buffer and the moment streams
         ``{name: (G, N)}`` ({} when the exchange is stateless). Staleness
-        buffers and downlink references are copies, never views of the
-        live buffers (which the round updates in place)."""
+        buffers, in-flight payloads and downlink references are copies,
+        never views of the live buffers (which the round updates in
+        place)."""
         state: dict = {}
         if not self.stateful:
             return state
+        moments = moments or {}
         cstate = {}
         if self.codec.stateful:
             cstate["params"] = self.codec.init(params_G)
-        if moments and self.mcodec.stateful:
+        if self.mcodec.stateful:
             for k, v in moments.items():
                 cstate[k] = self.mcodec.init(v)
         if cstate:
             state["codec"] = cstate
-        if self.topology == "async_stale":
+        vals = {"params": params_G, **moments}
+        if self.overlap:
+            # round r mixes what round r-1 put here; the initial params
+            # (replicated) make round 0's correction exactly zero
+            state["inflight"] = {k: v.clone() for k, v in vals.items()}
+        if self.topology == "async_stale" or (self.topology == "server"
+                                              and self.faulty):
+            # the faulty server keeps async_stale's staleness buffers: a
+            # group whose push drops contributes its last delivered one
             state["pushed"] = params_G.clone()
             if moments:
                 state["pushed_opt"] = {k: v.clone()
                                        for k, v in moments.items()}
+        if self.topology == "async_stale":
             state["round"] = torch.zeros((), dtype=torch.int32)
+        if self.hierarchical:
+            ic_state = {}
+            for k, v in vals.items():
+                ic = self.inter_stream_codec(k)
+                if ic.stateful:
+                    ic_state["inter:" + k] = ic.init(v)
+            if ic_state:
+                state.setdefault("codec", {}).update(ic_state)
+            if self.inter_topology == "push_sum":
+                # pod-level ratio consensus: flat push_sum's counters
+                # with one backlog slot per pod-graph offset, at G-leading
+                # shape (each member lane carries 1/pod_size of its pod)
+                self._init_push_sum(state, vals,
+                                    topo_mod.push_sum_offsets(self.n_pods))
+            state["round"] = torch.zeros((), dtype=torch.int32)
+            for k in ("participation", "participation_intra",
+                      "participation_inter"):
+                state[k] = _f32(1.0)
+            return state
+        if self.topology == "push_sum":
+            self._init_push_sum(state, vals,
+                                topo_mod.push_sum_offsets(self.n_groups))
+        if self.faulty or self.topology == "push_sum":
+            # the masks are pure in (round, seed): the counter in the comm
+            # state is what lets a checkpoint resume replay them
+            state.setdefault("round", torch.zeros((), dtype=torch.int32))
+            state["participation"] = _f32(1.0)
         if self.lossy_downlink:
             # the last decoded broadcast, shared by every group: starts at
             # the G-mean (equal to the params when they start replicated)
@@ -175,11 +401,20 @@ class Exchange:
                         + 0.0,
                         "state": self.downlink_codec.init(v)}
 
-            state["down"] = {"params": dinit(params_G)}
-            if moments:
-                state["down"].update({k: dinit(v)
-                                      for k, v in moments.items()})
+            state["down"] = {k: dinit(v) for k, v in vals.items()}
         return state
+
+    def _init_push_sum(self, state, vals, offs) -> None:
+        """Mass counters (host) and per-edge value backlogs (beside the
+        streams). Invariant: sum(mass) + sum(backlog_w) == G to float32
+        precision, every round."""
+        state["mass"] = torch.ones((self.n_groups,), dtype=torch.float32)
+        state["backlog"] = {
+            k: torch.zeros((len(offs),) + tuple(v.shape),
+                           dtype=torch.float32, device=v.device)
+            for k, v in vals.items()}
+        state["backlog_w"] = torch.zeros((len(offs), self.n_groups),
+                                         dtype=torch.float32)
 
     # -- mixing -----------------------------------------------------------
 
@@ -200,9 +435,17 @@ class Exchange:
         return out.copy_(y)
 
     def check_tree(self, average_opt_state: bool = True) -> None:
-        """Refuse an exchange the pytree round cannot run: a flat-only
-        codec (as the reference does) or what ROADMAP.md Queue A item 1b
-        will port (a lossy tree codec or downlink, async_stale)."""
+        """Refuse an exchange the pytree round cannot run: overlap or a
+        flat-only codec (as the reference does), or what ROADMAP.md Queue
+        A item 1b will port (a lossy tree codec or downlink, async_stale,
+        push_sum, the tiers, a fault plan)."""
+        if self.overlap:
+            raise NotImplementedError(
+                "the overlapped (delayed-mixing) exchange double-buffers "
+                "the packed flat stream payload as comm['inflight'] — run "
+                "the round with a packing.Layout and a packed optimizer "
+                "(DESIGN.md §14); the pytree path has no single "
+                "donation-safe buffer to put in flight")
         if self.topology == "none":
             return           # nothing on the wire: the codecs never run
         used = [("params", self.codec)]
@@ -219,9 +462,12 @@ class Exchange:
             if not codec.identity:
                 raise NotImplementedError(
                     f"{what} codec {codec.name!r} is {_TREE_NOT_PORTED}")
-        if self.topology == "async_stale":
+        if self.topology in ("async_stale", "push_sum", "hierarchical"):
             raise NotImplementedError(
-                f"topology 'async_stale' is {_TREE_NOT_PORTED}")
+                f"topology {self.topology!r} is {_TREE_NOT_PORTED}")
+        if self.faulty:
+            raise NotImplementedError(
+                f"fault injection ({self.name}) is {_TREE_NOT_PORTED}")
 
     def mix_tree(self, tree_G):
         """Codec-free mixing of a tree whose leaves carry a leading G
@@ -234,27 +480,75 @@ class Exchange:
 
         return tree.tree_map(leaf, tree_G)
 
+    def _masked_hop(self, v, wm, deficit, act):
+        """One masked W hop: a receiver substitutes its own value for
+        every lost payload (the deficit keeps rows stochastic) and a
+        stalled receiver keeps its value."""
+        out = _tensordot_w(wm, v) + deficit[:, None] * v
+        return torch.where(act > 0, out, v)
+
+    def _hop_masks(self, rnd: int, hop: int, device):
+        """The masked W of one hop and its row deficit, on ``device``."""
+        wm = self._w_on(device) * torch.as_tensor(
+            self.fault_plan.matrix_mask(rnd, hop, self.n_groups),
+            device=device)
+        return wm, 1.0 - wm.sum(dim=1)
+
+    def _mix_faulty(self, x, rnd: int, out):
+        """ring/gossip under a FaultPlan, written into ``out``.
+        Self-substitution keeps the masked matrix row-stochastic but its
+        columns no longer sum to 1, so the G-mean drifts (DESIGN.md
+        §12)."""
+        act = _col(self.fault_plan.active_mask(rnd, self.n_groups),
+                   x.device)
+        y = x
+        for h in range(self.mix_rounds):
+            y = self._masked_hop(y, *self._hop_masks(rnd, h, x.device), act)
+        return out.copy_(y)
+
+    def _edge_participation(self, rnd: int) -> torch.Tensor:
+        """Fraction of this round's true edge transmissions (off-diagonal
+        W support) delivered, averaged over hops."""
+        G = self.n_groups
+        sup = ((np.asarray(self.w) > 0) & ~np.eye(G, dtype=bool)).astype(
+            np.float32)
+        tot = np.float32(max(float(sup.sum()), 1.0))
+        total = np.float32(0)
+        for h in range(self.mix_rounds):
+            m = self.fault_plan.matrix_mask(rnd, h, G)
+            total = total + np.float32((m * sup).sum(dtype=np.float32)) / tot
+        return _f32(total / np.float32(self.mix_rounds))
+
     # -- the communication step -------------------------------------------
 
-    def _decentral_lossy(self, x_G, x0_G, cstate, codec):
+    def _decentral_lossy(self, x_G, x0_G, cstate, codec, rnd=None):
         """ring/gossip with a staged lossy codec: every hop encodes the
         delta against the last transmitted (decoded) value (hop 0 against
-        the round start) and mixes the decoded payload. Returns (mixed,
-        codec_state)."""
-        w = self._w_on(x_G.device)
+        the round start) and mixes the decoded payload; with ``rnd`` (an
+        active FaultPlan) each hop is masked as the identity streams'
+        hops are. Returns (mixed, codec_state)."""
+        dev = x_G.device
+        act = (None if rnd is None else
+               _col(self.fault_plan.active_mask(rnd, self.n_groups), dev))
+        w = self._w_on(dev)
         y, ref = x_G, x0_G
-        for _ in range(self.mix_rounds):
+        for h in range(self.mix_rounds):
             delta_hat, cstate = codec.compress(y - ref, cstate)
             ref = ref + delta_hat
-            y = _tensordot_w(w, ref)
+            del delta_hat
+            if rnd is None:
+                y = _tensordot_w(w, ref)
+            else:
+                y = self._masked_hop(ref, *self._hop_masks(rnd, h, dev), act)
         return y, cstate
 
     def _fusable(self, codec) -> bool:
         """Streams the fused codec_mix epilogue covers: a width codec on
         server, ring or gossip, or top-k on server (ring/gossip re-select
         per hop and stay staged). async keeps the staged path (the
-        staleness mask interleaves)."""
-        if not self.fused:
+        staleness mask interleaves), and so does every stream under an
+        active fault plan (the masks interleave with the mixing)."""
+        if self.faulty or not self.fused:
             return False
         if codec.topk_frac > 0:
             return self.topology == "server"
@@ -299,10 +593,24 @@ class Exchange:
         holds the round-start value of every lossy stream. Returns
         ``(mixed: {name: (G, N)}, new_comm_state)``; a mixed value may be
         the ``xs`` buffer itself, updated in place."""
+        if (isinstance(self.fault_plan, faults_mod.TieredFaultPlan)
+                and not self.hierarchical):
+            raise NotImplementedError(
+                f"topology {self.topology!r} is single-tier — a "
+                "TieredFaultPlan has no intra/inter split to bind to; "
+                "the only valid tiered-fault topology is 'hierarchical'. "
+                "Flat topologies take a plain FaultPlan: 'server', "
+                "'ring', 'gossip', 'async_stale', 'push_sum'")
+        if self.hierarchical:
+            return self._hier_streams(xs, xs0, comm_state)
+        if self.topology == "push_sum":
+            return self._push_sum_streams(xs, comm_state)
+        plan = self.fault_plan if self.topology != "none" else None
+        rnd = None if plan is None else int(comm_state["round"])
         new_state = dict(comm_state)
         cstates = dict(comm_state.get("codec", {}))
         touched = False
-        x_hat, mixed = {}, {}
+        x_hat, d_hats, mixed = {}, {}, {}
         for name, x in xs.items():
             codec = self.stream_codec(name)
             if codec.identity or self.topology == "none":
@@ -315,26 +623,64 @@ class Exchange:
             elif self.w is not None:
                 # decentralized + lossy: the codec runs per mixing hop
                 mixed[name], cs = self._decentral_lossy(
-                    x, xs0[name], cstates.get(name, {}), codec)
+                    x, xs0[name], cstates.get(name, {}), codec, rnd=rnd)
             else:
                 d_hat, cs = codec.compress(x - xs0[name],
                                            cstates.get(name, {}))
                 x_hat[name] = xs0[name] + d_hat
+                if plan is not None and "residual" in cs:
+                    d_hats[name] = d_hat      # deferred if the push drops
+                del d_hat
             if codec.stateful:
                 cstates[name] = cs
                 touched = True
-        if touched:
-            new_state["codec"] = cstates
-        if self.topology != "async_stale":
+        if plan is not None and self.w is not None:
+            # faulty ring/gossip: masked hops for the identity streams
+            # (the lossy ones were masked per hop above)
+            mixed.update({k: self._mix_faulty(v, rnd, out=xs[k])
+                          for k, v in x_hat.items()})
+            if touched:
+                new_state["codec"] = cstates
+            new_state["round"] = comm_state["round"] + 1
+            new_state["participation"] = self._edge_participation(rnd)
+            return mixed, new_state
+        if self.topology != "async_stale" and plan is None:
+            if touched:
+                new_state["codec"] = cstates
             mixed.update({k: self.mix(v, out=xs[k])
                           for k, v in x_hat.items()})
             return self._apply_downlink(mixed, comm_state, new_state)
-        # bounded staleness: refresh the groups whose push is scheduled
-        # this round, average every group's last push, per stream
+        # bounded staleness: refresh the groups whose push arrived this
+        # round (async_stale's schedule; everyone on the faulty server),
+        # average every group's last delivered push, per stream; a
+        # dropped push is sent again from the same buffer
         rnd = int(comm_state["round"])
-        dev = xs["params"].device
-        fresh = ((torch.arange(self.n_groups, device=dev) + rnd)
-                 % (self.staleness + 1) == 0)[:, None]
+        G = self.n_groups
+        if self.topology == "async_stale":
+            sched = (np.arange(G) + rnd) % (self.staleness + 1) == 0
+        else:
+            sched = np.ones((G,), bool)
+        if plan is not None:
+            delivered = plan.push_mask(rnd, G)
+            fresh = sched & (delivered > 0)
+            # only faults defer an error-feedback payload (the schedule's
+            # own idle rounds drop by design)
+            arrived = np.where(sched, delivered, np.float32(1.0))
+            for name, d in d_hats.items():
+                cstates[name] = codecs_mod.defer_undelivered(
+                    cstates[name], d, torch.as_tensor(arrived,
+                                                      device=d.device))
+                touched = True
+            n_sched = np.float32(max(sched.astype(np.float32).sum(), 1.0))
+            new_state["participation"] = _f32(
+                np.where(sched, delivered, np.float32(0)).sum(
+                    dtype=np.float32) / n_sched)
+        else:
+            fresh = sched
+        del d_hats
+        if touched:
+            new_state["codec"] = cstates
+        fresh = torch.as_tensor(fresh[:, None], device=xs["params"].device)
         pushed = torch.where(fresh, x_hat["params"], comm_state["pushed"])
         new_state["pushed"] = pushed
         mixed["params"] = self.mix(pushed, out=xs["params"])
@@ -347,6 +693,298 @@ class Exchange:
             new_state["pushed_opt"] = pushed_opt
         new_state["round"] = comm_state["round"] + 1
         return self._apply_downlink(mixed, comm_state, new_state)
+
+    def _push_sum_streams(self, xs: dict, comm_state: dict):
+        """Push-sum ratio consensus (DESIGN.md §12). Every live node splits
+        a (value, weight) mass pair into ``deg + 1`` equal shares, keeps
+        one and pushes one along each circulant offset; the estimate is
+        value / weight. Per-edge backlogs make it loss-tolerant: a
+        delivered payload carries its edge's whole queue, an undelivered
+        one leaves it queued, so mass is conserved under any drop pattern
+        (sum(mass) + sum(backlog_w) == G to float32 precision) and the
+        ratio stays an unbiased combination of the groups' models. A cast
+        codec (fp16/bf16) quantizes the transmitted value; its residue
+        stays queued. An absent node's mass freezes and drains on rejoin.
+        Each stream's mixed value is written into its ``xs`` buffer."""
+        G = self.n_groups
+        offs = topo_mod.push_sum_offsets(G)
+        for name in xs:
+            codec = self.stream_codec(name)
+            if not (codec.identity or codec.name in ("fp16", "bf16")):
+                raise NotImplementedError(
+                    f"push_sum + {codec.name}: the push-sum wire carries "
+                    "cumulative (value, weight) mass, not round deltas "
+                    "(DESIGN.md §12); valid push_sum codecs: 'fp32', "
+                    "'fp16', 'bf16'")
+        new_state = dict(comm_state)
+        new_state["round"] = comm_state["round"] + 1
+        if not offs:                               # G == 1: no wire
+            return dict(xs), new_state
+        rnd = int(comm_state["round"])
+        plan = self.fault_plan
+        a = 1.0 / (len(offs) + 1.0)
+        act = (plan.active_mask(rnd, G) if plan is not None
+               else np.ones((G,), np.float32))
+        # one mask per (hop, offset), shared by every stream of the one
+        # physical transmission
+        masks, incs = [], []
+        for h in range(self.mix_rounds):
+            mh, ih = [], []
+            for di, d in enumerate(offs):
+                bern = (plan.edge_mask(rnd, h, di, G) if plan is not None
+                        else np.ones((G,), np.float32))
+                src = np.roll(act, d)    # sender liveness, receiver slot
+                ih.append(src)
+                mh.append(bern * src * act)
+            masks.append(mh)
+            incs.append(ih)
+        w0 = comm_state["mass"].numpy()
+        w, blw = w0, comm_state["backlog_w"].numpy()
+        for h in range(self.mix_rounds):
+            w, blw = _push_sum_weights(w, blw, a, act, offs, incs[h],
+                                       masks[h])
+        dev = xs["params"].device
+        act_d = _col(act, dev)
+        masks_d = [[_col(m, dev) for m in mh] for mh in masks]
+        incs_d = [[_col(m, dev) for m in ih] for ih in incs]
+        w0_d, w_d = _col(w0, dev), _col(w, dev)
+        backlog = dict(comm_state["backlog"])
+        mixed = {}
+        for k, x in xs.items():
+            num = x.to(torch.float32) * w0_d
+            for h in range(self.mix_rounds):
+                num = _push_sum_hop(num, backlog[k], a, act_d, offs,
+                                    incs_d[h], masks_d[h],
+                                    self.stream_codec(k))
+            mixed[k] = torch.div(num, w_d, out=x)
+            del num
+        new_state["mass"] = torch.from_numpy(w)
+        new_state["backlog"] = backlog
+        new_state["backlog_w"] = torch.from_numpy(blw)
+        total = np.float32(0)
+        for mh in masks:
+            for m in mh:
+                total = total + _mask_mean(m)
+        new_state["participation"] = _f32(
+            total / np.float32(self.mix_rounds * len(offs)))
+        return mixed, new_state
+
+    def _hier_streams(self, xs: dict, xs0: dict, comm_state: dict):
+        """The two-tier round (DESIGN.md §16).
+
+        Stage A, within pods: G reshapes to (n_pods, pod_size).
+        ``intra_topology='ring'`` runs ``mix_rounds`` pod-local circulant
+        hops (a cast codec quantizes the neighbour payload; under an
+        intra FaultPlan a lost payload self-substitutes); ``'server'``
+        takes the pod mean (the survivors' mean under faults).
+
+        Stage B, across pods, on the tier's own fault and codec lanes.
+        ``inter_topology='push_sum'``: one hop of pod-level ratio
+        consensus, the pod graph's offsets striding ``pod_size`` on the G
+        axis, every mask drawn per pod and repeated per member; a fully
+        partitioned pod runs local rounds and drains its queue on rejoin;
+        ``elect_leaders`` keeps a pod live while any member is.
+        ``'server'``: each pod's first live member ships its model
+        (through ``inter_codec``, as a delta against the round start) and
+        every live member receives the leaders' mean.
+
+        Per-tier participation rides the comm state; the overall value
+        weights the tiers by their payload counts. Each stream's mixed
+        value is written into its ``xs`` buffer."""
+        G, n_pods = self.n_groups, self.n_pods
+        s = self.pod_len
+        if (self.fault_plan is not None
+                and not isinstance(self.fault_plan,
+                                   faults_mod.TieredFaultPlan)):
+            raise NotImplementedError(
+                "hierarchical faults are per-tier: a flat FaultPlan does "
+                "not say WHICH tier it masks — wrap it as "
+                "faults.TieredFaultPlan(intra=..., inter=...); valid "
+                "tiers: 'intra' (pod-internal), 'inter' (cross-pod)")
+        for name in xs:
+            c = self.stream_codec(name)
+            if not (c.identity or c.name in ("fp16", "bf16")):
+                raise NotImplementedError(
+                    f"hierarchical intra tier + {c.name}: pod-internal "
+                    "hops carry whole-value payloads, not round deltas "
+                    "(DESIGN.md §16); valid intra codecs: 'fp32', "
+                    "'fp16', 'bf16' — put int8 on the cross-tier wire "
+                    "via inter_codec with inter_topology='server'")
+            ic = self.inter_stream_codec(name)
+            if self.inter_topology == "push_sum" and not (
+                    ic.identity or ic.name in ("fp16", "bf16")):
+                raise NotImplementedError(
+                    f"hierarchical push_sum inter tier + {ic.name}: the "
+                    "cross-pod wire carries cumulative (value, weight) "
+                    "mass, not round deltas (DESIGN.md §12/§16); valid "
+                    "push_sum inter codecs: 'fp32', 'fp16', 'bf16' — or "
+                    "inter_topology='server' for 'int8'")
+        ip, xp = self.intra_plan, self.inter_plan
+        rnd = int(comm_state["round"])
+        new_state = dict(comm_state)
+        dev = xs["params"].device
+        ones = np.ones((G,), np.float32)
+
+        def pod_take(x, d):
+            # the payload member i receives from pod-mate (i + d) % s
+            r = x.reshape((n_pods, s) + tuple(x.shape[1:]))
+            if isinstance(x, np.ndarray):
+                return np.roll(r, -d, axis=1).reshape(x.shape)
+            return torch.roll(r, -d, 1).reshape(x.shape)
+
+        # ---- stage A: pod-internal tier ------------------------------
+        act_i = ip.active_mask(rnd, G) if ip is not None else ones
+        act_i_d = _col(act_i, dev)
+        ys = {k: x.to(torch.float32) for k, x in xs.items()}
+        part_intra = np.float32(1.0)
+        if s > 1 and self.intra_topology == "ring":
+            w_self, offs_pod, w_edge = topo_mod.ring_circulant(s)
+            masks_a, mask_sum, mask_n = [], np.float32(0), 0
+            for h in range(self.mix_rounds):
+                mh = []
+                for di, d in enumerate(offs_pod):
+                    bern = (ip.edge_mask(rnd, h, di, G) if ip is not None
+                            else ones)
+                    mh.append(bern * pod_take(act_i, d) * act_i)
+                hop_sum = np.float32(0)
+                for m in mh:
+                    hop_sum = hop_sum + _mask_mean(m)
+                mask_sum = mask_sum + hop_sum
+                mask_n += len(mh)
+                masks_a.append([_col(m, dev) for m in mh])
+            for k in list(ys):
+                codec = self.stream_codec(k)
+                v = ys[k]
+                for mh in masks_a:
+                    out = w_self * v
+                    for di, d in enumerate(offs_pod):
+                        t = pod_take(v, d)
+                        if not codec.identity:
+                            t = codec.compress(t, {})[0]
+                        # m*t + (1-m)*v with a 0/1 mask: the payload where
+                        # it arrived, the receiver's own value where lost
+                        t = torch.where(mh[di] > 0, t, v)
+                        t.mul_(w_edge)
+                        out.add_(t)
+                        del t
+                    v = torch.where(act_i_d > 0, out, v)
+                    del out
+                ys[k] = v
+            if ip is not None and mask_n:
+                part_intra = mask_sum / np.float32(mask_n)
+        elif s > 1:                                # intra "server"
+            deliv = ip.push_mask(rnd, G) if ip is not None else ones
+            dv = deliv.reshape(n_pods, s)
+            den = dv.sum(axis=1, dtype=np.float32)
+            recv = (act_i.reshape(n_pods, s) > 0) & (den[:, None] > 0)
+            dv_d = torch.as_tensor(dv[:, :, None], device=dev)
+            den_d = torch.as_tensor(np.maximum(den, np.float32(1))[:, None,
+                                                                   None],
+                                    device=dev)
+            recv_d = torch.as_tensor(recv[:, :, None], device=dev)
+            for k in list(ys):
+                codec = self.stream_codec(k)
+                v = ys[k]
+                r = v.reshape((n_pods, s) + tuple(v.shape[1:]))
+                t = r if codec.identity else codec.compress(r, {})[0]
+                m = (dv_d * t).sum(dim=1, keepdim=True) / den_d
+                del t
+                ys[k] = torch.where(recv_d, m.expand_as(r), r).reshape(
+                    v.shape)
+            if ip is not None:
+                part_intra = _mask_mean(deliv)
+
+        # ---- stage B: cross-pod tier ---------------------------------
+        offs_p = topo_mod.push_sum_offsets(n_pods)
+        cstates = dict(comm_state.get("codec", {}))
+        touched = False
+        mixed = {}
+        if self.inter_topology == "push_sum" and offs_p:
+            act_x = xp.active_mask(rnd, G) if xp is not None else ones
+            _, pod_live = elect_leaders(act_x, n_pods)
+            act_pod = np.repeat(pod_live, s)
+            a = 1.0 / (len(offs_p) + 1.0)
+            shifts = [dp * s for dp in offs_p]
+            masks, incs = [], []
+            for di, sh in enumerate(shifts):
+                # one Bernoulli per DCN edge per round, drawn per pod on
+                # the inter lane and shared by the pod's member lanes
+                bern = (xp.edge_mask(rnd, 0, di, n_pods)
+                        if xp is not None else np.ones((n_pods,), np.float32))
+                src = np.roll(act_pod, sh)
+                incs.append(src)
+                masks.append(np.repeat(bern, s) * src * act_pod)
+            w0 = comm_state["mass"].numpy()
+            new_w, new_blw = _push_sum_weights(
+                w0, comm_state["backlog_w"].numpy(), a, act_pod, shifts,
+                incs, masks)
+            act_pod_d = _col(act_pod, dev)
+            masks_d = [_col(m, dev) for m in masks]
+            incs_d = [_col(m, dev) for m in incs]
+            w0_d, w_d = _col(w0, dev), _col(new_w, dev)
+            backlog = dict(comm_state["backlog"])
+            for k in xs:
+                num = ys.pop(k) * w0_d
+                num = _push_sum_hop(num, backlog[k], a, act_pod_d, shifts,
+                                    incs_d, masks_d,
+                                    self.inter_stream_codec(k))
+                mixed[k] = torch.div(num, w_d, out=xs[k])
+                del num
+            new_state["mass"] = torch.from_numpy(new_w)
+            new_state["backlog"] = backlog
+            new_state["backlog_w"] = torch.from_numpy(new_blw)
+            if xp is not None:
+                total = np.float32(0)
+                for m in masks:
+                    total = total + _mask_mean(m)
+                part_inter = total / np.float32(len(offs_p))
+            else:
+                part_inter = np.float32(1.0)
+        elif self.inter_topology == "push_sum":    # single pod: no DCN
+            for k in xs:
+                mixed[k] = xs[k].copy_(ys.pop(k))
+            part_inter = np.float32(1.0)
+        else:                                      # inter "server"
+            act_x = xp.active_mask(rnd, G) if xp is not None else ones
+            lead_w, plive = elect_leaders(act_i * act_x, n_pods)
+            n_live = np.float32(max(float(plive.sum(dtype=np.float32)), 1.0))
+            lw_d = _col(lead_w, dev)
+            for k in xs:
+                ic = self.inter_stream_codec(k)
+                y = ys.pop(k)
+                if not ic.identity:
+                    # the cross-tier codec codes the round delta against
+                    # the round start, per group (only the leaders' decoded
+                    # payloads enter the mean; coding every group keeps
+                    # the noise counter's schedule group-independent)
+                    key = "inter:" + k
+                    x0 = xs0[k].to(torch.float32)
+                    d_hat, cs = ic.compress(y - x0, cstates.get(key, {}))
+                    del y
+                    y = x0 + d_hat
+                    del d_hat, x0
+                    if ic.stateful:
+                        cstates[key] = cs
+                        touched = True
+                m = (lw_d * y).sum(dim=0, keepdim=True) / float(n_live)
+                mixed[k] = xs[k].copy_(torch.where(act_i_d > 0,
+                                                   m.expand_as(y), y))
+                del y, m
+            part_inter = (_mask_mean(plive)
+                          if (ip is not None or xp is not None)
+                          else np.float32(1.0))
+        n_is = self._intra_send_count()
+        n_xs = self._inter_send_count()
+        tot = n_is + n_xs
+        if touched:
+            new_state["codec"] = cstates
+        new_state["round"] = comm_state["round"] + 1
+        new_state["participation"] = _f32(
+            (part_intra * np.float32(n_is) + part_inter * np.float32(n_xs))
+            / np.float32(tot) if tot > 0 else 1.0)
+        new_state["participation_intra"] = _f32(part_intra)
+        new_state["participation_inter"] = _f32(part_inter)
+        return mixed, new_state
 
     def _apply_downlink(self, mixed: dict, comm_state: dict,
                         new_state: dict):
@@ -368,31 +1006,85 @@ class Exchange:
         new_state["down"] = down
         return out, new_state
 
+    def params(self, x_G, x0_G, comm_state: dict):
+        """One exchange of the params alone (``x0_G`` may be None for an
+        identity codec). Returns ``(mixed_x_G, new_comm_state)``."""
+        xs0 = {} if x0_G is None else {"params": x0_G}
+        mixed, new_state = self.streams({"params": x_G}, xs0, comm_state)
+        return mixed["params"], new_state
+
+    # -- overlap: delayed mixing (DESIGN.md §14) ---------------------------
+
+    def encode_streams(self, xs: dict, xs0: dict, comm_state: dict):
+        """Encode every stream once, without mixing: what the overlapped
+        round puts in flight for the next round to mix. An identity codec
+        ships a copy of the value (never a view of the live buffer); a
+        lossy one ``x0 + decode(encode(x - x0))``, advancing its codec
+        state once. Returns ``({name: payload}, new_comm_state)``."""
+        new_state = dict(comm_state)
+        cstates = dict(comm_state.get("codec", {}))
+        touched = False
+        x_hat = {}
+        for name, x in xs.items():
+            codec = self.stream_codec(name)
+            if codec.identity:
+                x_hat[name] = x.clone()
+                continue
+            d_hat, cs = codec.compress(x - xs0[name], cstates.get(name, {}))
+            x_hat[name] = xs0[name] + d_hat
+            del d_hat
+            if codec.stateful:
+                cstates[name] = cs
+                touched = True
+        if touched:
+            new_state["codec"] = cstates
+        return x_hat, new_state
+
+    def mix_inflight(self, inflight: dict) -> dict:
+        """Mix the previous round's decoded in-flight payload, codec-free
+        (it was encoded when it shipped), into fresh buffers: the round
+        still needs ``inflight`` for its correction ``x + (mix(inflight)
+        - inflight)``. With overlap, ring and gossip run one W hop."""
+        return {k: self.mix(v, out=torch.empty_like(v))
+                for k, v in inflight.items()}
+
     # -- wire accounting (static: shapes only) ------------------------------
 
     def senders_per_round(self) -> float:
         """Uplink payloads per round. server: G. ring/gossip: one per
         directed edge per hop. async_stale: G/(s+1), amortized over the
-        staleness cycle."""
+        staleness cycle. push_sum: one per directed edge per hop, priced
+        at the delivery rate (a dropped payload moves no bytes; its queued
+        mass rides the next delivered payload)."""
         if self.topology == "none":
             return 0.0
+        if self.hierarchical:
+            return (self._intra_send_count()
+                    + self._inter_send_count(delivered=True))
         if self.topology == "server":
             return float(self.n_groups)
         if self.topology == "async_stale":
             return self.n_groups / (self.staleness + 1)
+        if self.topology == "push_sum":
+            offs = topo_mod.push_sum_offsets(self.n_groups)
+            return (len(offs) * self.n_groups * self.mix_rounds
+                    * self.delivery_rate)
         return float(topo_mod.n_edge_sends(self.w) * self.mix_rounds)
 
     def receivers_per_round(self) -> float:
         """Downlink payloads per round: every topology's mirrors its
-        uplink count (server broadcasts to all G; ring/gossip edges are
+        uplink count (server broadcasts to all G; p2p edges are
         symmetric; async answers each push)."""
         return self.senders_per_round()
 
     def _stream_payload_bytes(self, n_params: int,
                               moment_sizes: Optional[Dict[str, int]]
                               ) -> Dict[str, int]:
-        """One uplink payload per stream, through the stream's codec."""
+        """One uplink payload per stream, through the stream's codec (a
+        push-sum payload also carries the 4-byte weight counter)."""
         out = {"params": self.codec.wire_bytes(n_params)}
+        if self.topology == "push_sum":
+            out["params"] += 4
         for k, n in (moment_sizes or {}).items():
             out[k] = self.mcodec.wire_bytes(n)
         return out
@@ -409,12 +1101,64 @@ class Exchange:
             out[k] = self.downlink_codec.wire_bytes(n)
         return out
 
+    # -- hierarchical per-tier accounting (DESIGN.md §16) ------------------
+
+    def _intra_send_count(self) -> float:
+        """Pod-internal uplink payloads per round: one per pod-local
+        circulant edge per hop (ring), or one per member (server)."""
+        s = self.pod_len
+        if s <= 1:
+            return 0.0
+        if self.intra_topology == "server":
+            return float(self.n_groups)
+        _, offs_pod, _ = topo_mod.ring_circulant(s)
+        return float(self.n_groups * len(offs_pod) * self.mix_rounds)
+
+    def _inter_send_count(self, delivered: bool = False) -> float:
+        """Cross-pod uplink payloads per round, carried by the pod
+        leaders: one per pod per directed DCN edge (push_sum; priced at
+        the tier's delivery rate when ``delivered``), or one per pod
+        (server)."""
+        if self.inter_topology == "server":
+            return float(self.n_pods)
+        n = float(len(topo_mod.push_sum_offsets(self.n_pods)) * self.n_pods)
+        return n * self.delivery_rate_inter if delivered else n
+
+    def _tier_wire(self, n_params: int,
+                   moment_sizes: Optional[Dict[str, int]]):
+        """``{"intra"|"inter": {"up"|"down"|"total": {stream: bytes}}}``:
+        p2p tiers (intra ring, inter push_sum) count an edge payload once
+        in the total; server tiers count the uplink and the reply."""
+        iw = {"params": self.codec.wire_bytes(n_params)}
+        xw = {"params":
+              self.inter_stream_codec("params").wire_bytes(n_params)}
+        if self.inter_topology == "push_sum":
+            xw["params"] += 4        # the fp32 weight-mass counter
+        for k, n in (moment_sizes or {}).items():
+            iw[k] = self.mcodec.wire_bytes(n)
+            xw[k] = self.inter_stream_codec(k).wire_bytes(n)
+        out = {}
+        for tier, count, per, p2p in (
+                ("intra", self._intra_send_count(), iw,
+                 self.intra_topology == "ring"),
+                ("inter", self._inter_send_count(delivered=True), xw,
+                 self.inter_topology == "push_sum")):
+            up = {k: int(round(count * b)) for k, b in per.items()}
+            out[tier] = {"up": up, "down": dict(up),
+                         "total": (dict(up) if p2p else
+                                   {k: 2 * v for k, v in up.items()})}
+        return out
+
     def wire_bytes_by_stream(self, n_params: int,
                              moment_sizes: Optional[Dict[str, int]] = None
                              ) -> Dict[str, int]:
         """Total payload bytes per round, per stream: server/async pushes
         and replies are distinct payloads; a p2p edge payload counts
         once."""
+        if self.hierarchical:
+            tw = self._tier_wire(n_params, moment_sizes)
+            return {k: tw["intra"]["total"][k] + tw["inter"]["total"][k]
+                    for k in tw["intra"]["total"]}
         per = self._stream_payload_bytes(n_params, moment_sizes)
         per_dn = self._downlink_payload_bytes(n_params, moment_sizes)
         s, r = self.senders_per_round(), self.receivers_per_round()
@@ -426,12 +1170,19 @@ class Exchange:
 
     def wire_bytes_up(self, n_params: int, *,
                       moment_sizes: Optional[Dict[str, int]] = None) -> int:
+        if self.hierarchical:
+            tw = self._tier_wire(n_params, moment_sizes)
+            return sum(sum(tw[t]["up"].values()) for t in ("intra", "inter"))
         s = self.senders_per_round()
         return sum(int(round(s * b)) for b in
                    self._stream_payload_bytes(n_params, moment_sizes).values())
 
     def wire_bytes_down(self, n_params: int, *,
                         moment_sizes: Optional[Dict[str, int]] = None) -> int:
+        if self.hierarchical:
+            tw = self._tier_wire(n_params, moment_sizes)
+            return sum(sum(tw[t]["down"].values())
+                       for t in ("intra", "inter"))
         r = self.receivers_per_round()
         return sum(int(round(r * b)) for b in self._downlink_payload_bytes(
             n_params, moment_sizes).values())
@@ -444,10 +1195,14 @@ class Exchange:
     def wire_bytes_by_tier(self, n_params: int,
                            moment_sizes: Optional[Dict[str, int]] = None
                            ) -> Dict[str, int]:
-        """A flat topology is one tier: the whole wire is ``intra``."""
-        return {"intra": self.wire_bytes_per_round(
-                    n_params, moment_sizes=moment_sizes),
-                "inter": 0}
+        """Total bytes per round per tier. A flat topology is one tier:
+        the whole wire is ``intra``."""
+        if not self.hierarchical:
+            return {"intra": self.wire_bytes_per_round(
+                        n_params, moment_sizes=moment_sizes),
+                    "inter": 0}
+        tw = self._tier_wire(n_params, moment_sizes)
+        return {t: sum(tw[t]["total"].values()) for t in ("intra", "inter")}
 
 
 def get_exchange(topology: str = "server", codec: str = "fp32",
@@ -456,27 +1211,157 @@ def get_exchange(topology: str = "server", codec: str = "fp32",
                  chunk: int = 256, topk_frac: float = 0.05,
                  moment_codec: str = "fp32", downlink_codec: str = "",
                  fused: bool = True, drop_rate: float = 0.0,
-                 stall_rate: float = 0.0, dropouts=(), overlap: bool = False,
-                 n_pods: int = 0, inter_codec: str = "",
+                 stall_rate: float = 0.0, fault_seed: int = 0,
+                 dropouts=(), overlap: bool = False, n_pods: int = 0,
+                 intra_topology: str = "ring",
+                 inter_topology: str = "push_sum", inter_codec: str = "",
+                 intra_drop_rate: float = 0.0, intra_stall_rate: float = 0.0,
                  noise_hook: Optional[Callable] = None) -> Exchange:
-    """Build an Exchange from names (the ``--comm`` / ``--codec`` /
-    ``--moment-codec`` / ``--downlink-codec`` flags), with the reference's
-    refusals. The params, moment and downlink codecs draw noise from the
-    seed lanes of ``faults.codec_seed``. ``noise_hook(seed) ->
-    noise_fn`` (optional) gives each int8/int8z codec the noise function
-    of its lane, in place of the default generator."""
+    """Build an Exchange from names (the launcher's ``--comm``,
+    ``--codec``, ``--moment-codec``, ``--downlink-codec``, ``--drop-rate``,
+    ``--stall-rate``, ``--fault-seed``, ``--overlap``, ``--n-pods``,
+    ``--intra-topology``, ``--inter-topology``, ``--inter-codec``,
+    ``--intra-drop-rate`` and ``--intra-stall-rate`` flags), with the
+    reference's refusals, each naming the valid alternatives.
+
+    All-zero fault flags attach no plan. On the hierarchical topology the
+    generic ``drop_rate``/``stall_rate``/``dropouts`` describe the lossy
+    cross-pod tier and ``intra_*`` the pod-internal one, on independent
+    seed lanes of ``fault_seed`` (``faults.fault_seed_for``). The params,
+    moment, downlink and cross-tier codecs draw noise from the seed lanes
+    of ``faults.codec_seed``. ``noise_hook(seed) -> noise_fn`` (optional)
+    gives each int8/int8z codec the noise function of its lane, in place
+    of the default generator."""
     if topology not in TOPOLOGIES:
         raise ValueError(f"unknown topology {topology!r}: valid "
                          f"topologies are {TOPOLOGIES}")
-    if topology in ("push_sum", "hierarchical") or n_pods or inter_codec:
-        raise NotImplementedError(
-            f"topology {topology!r} (push_sum, hierarchical tiers) is "
-            f"{_NOT_PORTED}; ported: 'server', 'ring', 'gossip', "
-            "'async_stale', 'none'")
+    hier = topology == "hierarchical"
+    if not hier:
+        if n_pods:
+            raise ValueError(
+                f"n_pods only applies to topology 'hierarchical' (got "
+                f"topology={topology!r}); valid flat topologies take no "
+                "tier factoring — use 'hierarchical' or drop n_pods")
+        if inter_codec:
+            raise ValueError(
+                "inter_codec only applies to topology 'hierarchical' — "
+                "flat topologies have one wire; valid per-stream knobs "
+                "there are 'codec', 'moment_codec', 'downlink_codec'")
+        if intra_drop_rate or intra_stall_rate:
+            raise ValueError(
+                "intra_drop_rate/intra_stall_rate only apply to topology "
+                "'hierarchical' — a flat topology's single tier is "
+                "configured via 'drop_rate'/'stall_rate'")
+    if hier:
+        topo_mod.pod_size(n_groups, n_pods)    # validates the factoring
+        if intra_topology not in INTRA_TOPOLOGIES:
+            raise ValueError(
+                f"unknown intra_topology {intra_topology!r}: valid "
+                f"intra-pod topologies are {INTRA_TOPOLOGIES}")
+        if inter_topology not in INTER_TOPOLOGIES:
+            raise ValueError(
+                f"unknown inter_topology {inter_topology!r}: valid "
+                f"cross-pod topologies are {INTER_TOPOLOGIES}")
+        if overlap:
+            raise NotImplementedError(
+                "overlap + hierarchical: the two mixing stages consume "
+                "each other's outputs within one round — a "
+                "one-round-stale in-flight payload would interleave the "
+                "tiers ambiguously (DESIGN.md §16); valid overlap "
+                "topologies: 'server', 'ring', 'gossip'")
+        if downlink_codec:
+            raise NotImplementedError(
+                "hierarchical + downlink_codec: the cross-pod reply is "
+                "priced per tier already — compress it with "
+                "'inter_codec' instead; valid downlink_codec topologies: "
+                "'server', 'async_stale'")
+        for nm, c in (("codec", codec), ("moment_codec", moment_codec)):
+            if c in ("int8", "int8z", "topk"):
+                raise NotImplementedError(
+                    f"hierarchical + {nm}={c!r}: pod-internal hops carry "
+                    "whole-value payloads, not round deltas (DESIGN.md "
+                    "§16); valid intra codecs: 'fp32', 'fp16', 'bf16' — "
+                    "put int8 on the cross-tier wire via inter_codec "
+                    "with inter_topology='server'")
+        if inter_codec == "topk":
+            raise NotImplementedError(
+                "hierarchical + inter_codec='topk': error feedback "
+                "against the pod-leader wire has no per-member residual "
+                "home (DESIGN.md §16); valid inter codecs: 'fp32', "
+                "'fp16', 'bf16', 'int8', 'int8z'")
+        if inter_topology == "push_sum" and inter_codec in ("int8",
+                                                            "int8z"):
+            raise NotImplementedError(
+                f"hierarchical push_sum inter tier + {inter_codec!r}: "
+                "the cross-pod wire carries cumulative (value, weight) "
+                "mass, not round deltas (DESIGN.md §12/§16); valid "
+                "push_sum inter codecs: 'fp32', 'fp16', 'bf16' — or "
+                "inter_topology='server' for 'int8'")
+        if inter_topology == "server" and (drop_rate or stall_rate
+                                           or dropouts):
+            raise NotImplementedError(
+                "hierarchical inter_topology='server' is the "
+                "reliable-DCN baseline — it has no mass counters to "
+                "conserve dropped payloads with; lossy cross-pod faults "
+                "need inter_topology='push_sum', or a flat faulty "
+                "'server'")
     if overlap:
-        raise NotImplementedError(f"overlap is {_NOT_PORTED}")
-    if drop_rate or stall_rate or dropouts:
-        raise NotImplementedError(f"fault injection is {_NOT_PORTED}")
+        if topology == "none":
+            raise NotImplementedError(
+                "topology 'none' has no wire, so there is nothing to put "
+                "in flight — overlap would double-buffer a payload that "
+                "never ships (DESIGN.md §14); valid overlap topologies: "
+                "'server', 'ring', 'gossip'")
+        if topology == "async_stale":
+            raise NotImplementedError(
+                "overlap + async_stale: overlap IS bounded staleness "
+                "(s=1 delayed mixing on every topology, DESIGN.md §14) — "
+                "stacking the per-group staleness schedule on top would "
+                "compound the lag ambiguously; use overlap on 'server' "
+                "(same semantics, every group one round stale) or plain "
+                "async_stale with staleness=1")
+        if topology == "push_sum":
+            raise NotImplementedError(
+                "overlap + push_sum: the mass counters and per-edge "
+                "backlogs must update in the SAME step that mixes the "
+                "payload (sum(mass) + sum(backlog_w) == G every round, "
+                "DESIGN.md §12) — a one-round-stale mix would break mass "
+                "conservation; valid overlap topologies: 'server', "
+                "'ring', 'gossip'")
+        if downlink_codec:
+            raise NotImplementedError(
+                "overlap + downlink_codec: the downlink re-encodes the "
+                "MIXED mean against the last broadcast, but with overlap "
+                "the mix happens a round after the encode — the "
+                "broadcast reference would be two rounds stale and the "
+                "in-flight payload no longer matches what receivers "
+                "decode (DESIGN.md §14); drop one of the two, or use "
+                "the barrier engine with downlink_codec")
+        if mix_rounds != 1 and topology in ("ring", "gossip"):
+            raise NotImplementedError(
+                "overlap + mix_rounds > 1: a multi-hop round re-encodes "
+                "per hop, but the in-flight payload is a SINGLE encoded "
+                "buffer — only one codec-free hop can ride it "
+                "(DESIGN.md §14); use mix_rounds=1 with overlap, or the "
+                "barrier engine for k-hop rounds")
+        if drop_rate or stall_rate or dropouts:
+            raise NotImplementedError(
+                "overlap + fault injection: the fault masks gate the "
+                "mixing in the round that SHIPS the payload — with "
+                "delayed mixing the drop schedule and the mix are a "
+                "round apart, and retry-from-pushed semantics (DESIGN.md "
+                "§12) have no in-flight analogue yet; valid overlap "
+                "networks are fault-free, or use the barrier engine "
+                "with a FaultPlan")
+        if codec == "topk" or moment_codec == "topk":
+            raise NotImplementedError(
+                "overlap + topk: the error-feedback residual re-offers "
+                "unshipped mass against a reference that is one round "
+                "stale under delayed mixing — the EF loop gain exceeds 1 "
+                "at small selection fractions and the run diverges "
+                "(DESIGN.md §14 refusal matrix, measured: ring/topk "
+                "f=0.05 → inf); valid overlap codecs: 'fp32', 'fp16', "
+                "'bf16', 'int8', 'int8z'")
     if downlink_codec:
         if topology in ("ring", "gossip"):
             raise NotImplementedError(
@@ -484,6 +1369,12 @@ def get_exchange(topology: str = "server", codec: str = "fp32",
                 "transmission IS both one node's uplink and its "
                 "neighbor's downlink, so there is no separate downlink "
                 "to compress (DESIGN.md §11); valid downlink_codec "
+                "topologies: 'server', 'async_stale'")
+        if topology == "push_sum":
+            raise NotImplementedError(
+                "push_sum edge payloads already carry the (value, "
+                "weight) mass both ways — there is no broadcast reply "
+                "to compress (DESIGN.md §12); valid downlink_codec "
                 "topologies: 'server', 'async_stale'")
         if topology == "none":
             raise NotImplementedError(
@@ -511,6 +1402,42 @@ def get_exchange(topology: str = "server", codec: str = "fp32",
             "error feedback would re-offer rounds-stale moment mass; "
             "valid moment codecs: 'fp32', 'fp16', 'bf16', 'int8', "
             "'int8z'")
+    if topology == "push_sum":
+        # the push-sum wire carries cumulative (value, weight) mass, not
+        # round deltas: int8's delta scaling and top-k's error feedback
+        # have no delta to code; a cast's residue stays in the backlog
+        if codec in ("int8", "int8z", "topk"):
+            raise NotImplementedError(
+                f"push_sum + {codec}: the push-sum wire carries "
+                "cumulative mass, not round deltas (DESIGN.md §12); "
+                "valid push_sum codecs: 'fp32', 'fp16', 'bf16'")
+        if moment_codec in ("int8", "int8z", "topk"):
+            raise NotImplementedError(
+                f"push_sum + moment_codec={moment_codec!r}: moment "
+                "streams ride the same mass-counter wire (DESIGN.md "
+                "§12); valid push_sum moment codecs: 'fp32', 'fp16', "
+                "'bf16'")
+    plan = None
+    dropouts = tuple(tuple(d) for d in dropouts)
+    if hier:
+        plan = faults_mod.TieredFaultPlan(
+            intra=faults_mod.FaultPlan(
+                seed=faults_mod.fault_seed_for(fault_seed, "intra"),
+                drop_rate=intra_drop_rate, stall_rate=intra_stall_rate),
+            inter=faults_mod.FaultPlan(
+                seed=faults_mod.fault_seed_for(fault_seed, "inter"),
+                drop_rate=drop_rate, stall_rate=stall_rate,
+                dropouts=dropouts))
+    elif drop_rate or stall_rate or dropouts:
+        plan = faults_mod.FaultPlan(seed=fault_seed, drop_rate=drop_rate,
+                                    stall_rate=stall_rate, dropouts=dropouts)
+    if plan is not None and plan.trivial:
+        plan = None                  # reliable: the fault-free path
+    if plan is not None and topology == "none":
+        raise ValueError(
+            "topology 'none' has no wire to drop packets from; valid "
+            "fault-injection topologies: 'server', 'ring', 'gossip', "
+            "'async_stale', 'push_sum', 'hierarchical'")
 
     def lane(name, lane_name):
         s = faults_mod.codec_seed(seed, lane_name)
@@ -521,13 +1448,17 @@ def get_exchange(topology: str = "server", codec: str = "fp32",
     c = lane(codec, "params")
     mc = _FP32 if moment_codec == "fp32" else lane(moment_codec, "moments")
     dc = lane(downlink_codec, "downlink") if downlink_codec else None
+    xc = lane(inter_codec, "inter") if inter_codec else None
     w = None
     if topology in ("ring", "gossip"):
         w = topo_mod.mixing_matrix(topology, n_groups, seed=seed)
     return Exchange(topology=topology, codec=c, n_groups=n_groups,
                     mix_rounds=mix_rounds,
                     staleness=staleness if topology == "async_stale" else 0,
-                    w=w, moment_codec=mc, downlink_codec=dc, fused=fused)
+                    w=w, moment_codec=mc, downlink_codec=dc, fused=fused,
+                    fault_plan=plan, overlap=overlap, n_pods=n_pods,
+                    intra_topology=intra_topology,
+                    inter_topology=inter_topology, inter_codec=xc)
 
 
 def default_exchange(n_groups: int) -> Exchange:

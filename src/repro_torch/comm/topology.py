@@ -6,9 +6,10 @@ The paper's server step is the star topology: every node pushes its
 model, pulls the mean. Decentralized variants replace it with rounds of
 neighbour averaging ``x <- W x`` over the G groups, where ``W`` is
 doubly stochastic: rows sum to 1 (iterates stay in the convex hull) and
-columns sum to 1 (the G-mean is invariant). The push-sum offsets and
-the pod helpers of the hierarchical topology are not ported yet
-(ROADMAP.md Queue A item 4).
+columns sum to 1 (the G-mean is invariant). push_sum is matrix-free: its directed
+circulant offsets come from ``push_sum_offsets``; the hierarchical
+topology factors G into contiguous pods (``pod_size``) and mixes within
+a pod over ``ring_circulant``.
 """
 from __future__ import annotations
 
@@ -70,7 +71,46 @@ def mixing_matrix(name: str, m: int, seed: int = 0) -> np.ndarray:
     raise ValueError(
         f"unknown topology {name!r}: valid mixing-matrix topologies are "
         "'server', 'ring', 'gossip' (push_sum is matrix-free ratio "
-        "consensus; async_stale/none never mix through W)")
+        "consensus — see push_sum_offsets; async_stale/none never mix "
+        "through W)")
+
+
+def push_sum_offsets(m: int) -> tuple:
+    """Directed circulant offsets of the push-sum graph (DESIGN.md §12):
+    node g pushes shares to ``(g + d) % m`` for each offset d, so every
+    node splits its (value, weight) mass into ``len(offsets) + 1`` equal
+    shares (one kept). m = 1 needs no wire; m = 2 has one edge each way
+    (offset 1 covers both directions)."""
+    if m <= 1:
+        return ()
+    if m == 2:
+        return (1,)
+    return (1, m - 1)
+
+
+def pod_size(g: int, n_pods: int) -> int:
+    """Validated pod size of the hierarchical topology (DESIGN.md §16):
+    the G axis factors into ``n_pods`` contiguous pods of equal size,
+    group g in pod ``g // pod_size``."""
+    if n_pods < 1:
+        raise ValueError(f"n_pods {n_pods} must be >= 1")
+    if g % n_pods != 0:
+        raise ValueError(
+            f"hierarchical topology needs n_pods ({n_pods}) to divide "
+            f"n_groups ({g}) into equal contiguous pods; valid pod counts "
+            f"for G={g} are the divisors of G")
+    return g // n_pods
+
+
+def ring_circulant(m: int):
+    """``(w_self, offsets, w_edge)`` of the symmetric ring over m nodes:
+    x_i <- w_self*x_i + w_edge*sum_d x_{(i+d) % m}, equal to
+    ``ring_matrix`` (m <= 2 is the mean)."""
+    if m <= 1:
+        return 1.0, (), 0.0
+    if m == 2:
+        return 0.5, (1,), 0.5
+    return 1.0 / 3.0, (1, m - 1), 1.0 / 3.0
 
 
 def is_doubly_stochastic(w: np.ndarray, tol: float = 1e-9) -> bool:

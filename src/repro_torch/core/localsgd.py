@@ -35,6 +35,12 @@ own; a threshold group reads its stopping test after every step and
 stops on its own, which gives the counts of the reference's vmapped
 ``while_loop`` (finished groups keep their state there).
 
+With an overlapped exchange the packed round mixes the previous round's
+in-flight payload before its local steps and puts its own result in
+flight (DESIGN.md §14); the pytree round refuses overlap, as the
+reference's does, and faults, push_sum and the tiers (not ported there
+yet: ROADMAP.md Queue A item 1b).
+
 Not ported yet: sharded execution (ROADMAP.md Queue A item 5).
 """
 from __future__ import annotations
@@ -125,28 +131,58 @@ def _round_wire_bytes(exch, n: int, moment_sizes: dict) -> dict:
 
 
 def _check_comm_state(exch, state_G, mkeys=()) -> None:
+    comm_state = state_G.get("comm", {})
     if exch.stateful and "comm" not in state_G:
         raise ValueError(
             f"exchange {exch.name!r} carries round-to-round state "
             "(staleness buffers / codec residuals); build the train state "
             "with init_state(..., exchange=...)")
     if (exch.topology == "async_stale" and mkeys
-            and "pushed_opt" not in state_G.get("comm", {})):
+            and "pushed_opt" not in comm_state):
         raise ValueError(
             "async_stale averages opt state through per-stream staleness "
             "buffers; build the train state with init_state(..., "
             "exchange=...) so comm['pushed_opt'] is allocated "
             "(DESIGN.md §10)")
+    if exch.topology == "push_sum" and "mass" not in comm_state:
+        raise ValueError(
+            "push_sum is ratio consensus: every round needs the mass "
+            "counters and per-edge backlog buffers; build the train state "
+            "with init_state(..., exchange=...) so comm['mass'] / "
+            "comm['backlog'] are allocated (DESIGN.md §12)")
+    if (exch.faulty and exch.topology == "server"
+            and "pushed" not in comm_state):
+        raise ValueError(
+            "a faulty server exchange retries dropped pushes from "
+            "per-group staleness buffers; build the train state with "
+            "init_state(..., exchange=...) so comm['pushed'] is "
+            "allocated (DESIGN.md §12)")
+    if (exch.hierarchical and exch.inter_topology == "push_sum"
+            and exch.n_pods > 1 and "mass" not in comm_state):
+        raise ValueError(
+            "hierarchical push_sum inter tier is ratio consensus: every "
+            "round needs the pod-level mass counters and per-edge "
+            "backlogs; build the train state with init_state(..., "
+            "exchange=...) so comm['mass'] / comm['backlog'] are "
+            "allocated (DESIGN.md §16)")
+    if exch.overlap and "inflight" not in comm_state:
+        raise ValueError(
+            "an overlapped exchange double-buffers the previous round's "
+            "payload; build the train state with init_state(..., "
+            "exchange=...) so comm['inflight'] is allocated "
+            "(DESIGN.md §14)")
 
 
 def _clamp_nonneg_streams(mixed: dict, opt, exch) -> dict:
     """Project lossy-decoded non-negative moment streams (adamw's v) back
     onto [0, inf), in place: a delta codec's decode error is bounded by
     the chunk scale, so a small v element can come back slightly
-    negative, and sqrt(v) would be NaN. Identity moment codecs without a
-    lossy downlink skip this (the default path stays bit-exact)."""
-    if ((exch.mcodec.identity and not exch.lossy_downlink)
-            or exch.topology == "none"):
+    negative, and sqrt(v) would be NaN. Overlap always projects: its
+    correction ``v + mix(inflight) - inflight`` is additive. Identity
+    moment codecs without a lossy downlink or overlap skip this (the
+    default path stays bit-exact)."""
+    if ((exch.mcodec.identity and not exch.lossy_downlink
+         and not exch.overlap) or exch.topology == "none"):
         return mixed
     for k in opt.moment_nonneg:
         if k in mixed:
@@ -166,22 +202,31 @@ def _residual_sq_groups(res, n_groups: int, device, impl: str):
 def _obs_round_metrics(exch, comm_state: dict, streams, consensus_pre,
                        consensus_post, n_groups: int, device,
                        impl: str) -> dict:
-    """The reference's uniform per-round block (DESIGN.md §13) on a
-    reliable single-tier exchange: consensus before and after, each
-    stream's codec error (its error-feedback residual), no backlog, full
-    participation and delivery."""
-    one = torch.ones((), dtype=torch.float32, device=device)
+    """The reference's uniform per-round block (DESIGN.md §13): consensus
+    before and after, each stream's codec error (its error-feedback
+    residual), push-sum's queued weight mass, participation (overall and
+    per tier) and the exchange's expected delivery rates. Always the same
+    keys: ones and zeros where a quantity is inert (a flat topology is one
+    tier, the whole wire "intra")."""
+    def dev(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=device)
+
     m = {"consensus_sq": consensus_pre, "consensus_sq_post": consensus_post}
     cstates = comm_state.get("codec", {})
     for s in streams:
         m[f"codec_err/{s}"] = _residual_sq_groups(
             cstates.get(s, {}).get("residual"), n_groups, device, impl)
-    m["backlog_mass"] = torch.zeros((), dtype=torch.float32, device=device)
-    rate = torch.tensor(exch.delivery_rate, dtype=torch.float32,
-                        device=device)
-    m.update(participation=one, delivery_rate=rate, participation_intra=one,
-             participation_inter=one, delivery_rate_intra=rate,
-             delivery_rate_inter=one)
+    m["backlog_mass"] = (dev(comm_state["backlog_w"].sum())
+                         if "backlog_w" in comm_state else dev(0.0))
+    m["participation"] = dev(comm_state.get("participation", 1.0))
+    m["delivery_rate"] = dev(exch.delivery_rate)
+    m["participation_intra"] = (dev(comm_state["participation_intra"])
+                                if "participation_intra" in comm_state
+                                else m["participation"])
+    m["participation_inter"] = dev(comm_state.get("participation_inter",
+                                                  1.0))
+    m["delivery_rate_intra"] = dev(exch.delivery_rate_intra)
+    m["delivery_rate_inter"] = dev(exch.delivery_rate_inter)
     return m
 
 
@@ -383,6 +428,12 @@ def _make_packed_local_round(loss_fn, opt, cfg, layout, exch):
         if per_group_count and opt_state["count"].dim() == 0:
             # first round after init: the shared count becomes one per group
             opt_state["count"] = opt_state["count"].expand(G).clone()
+        if exch.overlap:
+            # delayed mixing (DESIGN.md §14): the previous round's payload
+            # is mixed first, into fresh buffers (it depends on nothing the
+            # local steps compute)
+            inflight = comm_state["inflight"]
+            mixed_inf = exch.mix_inflight(inflight)
         batches = [tree.tree_map(lambda x: x[g], batch_G) for g in range(G)]
         if micro:
             # (T, G): one microbatch a step
@@ -430,11 +481,23 @@ def _make_packed_local_round(loss_fn, opt, cfg, layout, exch):
         consensus_pre = _consensus_sq_flat(params, opt.impl)
         # every stream (params and moments) through the exchange; the
         # step count is never exchanged
-        mixed, comm_state = exch.streams(
-            {"params": params, **{k: opt_state[k] for k in mkeys}}, xs0,
-            comm_state)
-        del xs0
-        mixed = _clamp_nonneg_streams(mixed, opt, exch)
+        xs = {"params": params, **{k: opt_state[k] for k in mkeys}}
+        if exch.overlap:
+            # p' = local(p) + mix(inflight) - inflight, in place; p' (not
+            # the local iterate) goes in flight, encoded against the round
+            # start as the barrier round's codecs encode
+            for k, x in xs.items():
+                d = mixed_inf.pop(k).sub_(inflight[k])
+                x.add_(d)
+                del d
+            mixed = _clamp_nonneg_streams(xs, opt, exch)
+            new_inflight, comm_state = exch.encode_streams(mixed, xs0,
+                                                           comm_state)
+            comm_state = {**comm_state, "inflight": new_inflight}
+        else:
+            mixed, comm_state = exch.streams(xs, xs0, comm_state)
+            mixed = _clamp_nonneg_streams(mixed, opt, exch)
+        del xs0, xs
         params = mixed["params"]
         opt_state.update({k: mixed[k] for k in mkeys})
         metrics.update(_round_wire_bytes(exch, layout.padded,

@@ -11,13 +11,25 @@ sync-DP baseline) on one device (counterpart of
         --arch paper-mlp --reduced --threshold 1e-1     # T_i = inf
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --arch paper-mlp --reduced --packed --mode sync
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --arch paper-mlp --reduced --packed --comm push_sum \\
+        --drop-rate 0.05                          # an unreliable network
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --arch paper-mlp --reduced --packed --comm hierarchical \\
+        --groups 8 --n-pods 4 --drop-rate 0.075   # two tiers, lossy DCN
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --arch paper-mlp --reduced --packed --comm ring --codec int8 \\
+        --overlap                                 # delayed mixing
 
 Runs on ``cuda`` unless ``--device cpu`` is given; on ``cuda`` the
 packed updates, norms and exchange codecs launch the CUDA kernels of
 ``repro_torch/kernels`` (the pytree round, without ``--packed``, has
 none). ``--adaptive-t`` refits T every round from the round's local
 gradient-norm trajectory (paper Sec 4, ``core/controller.py``
-``AdaptiveT``). Round times are fenced with ``torch.cuda.synchronize()``.
+``AdaptiveT``; on a lossy network the cost ratio is repriced by the
+exchange's delivery rate). Each round prints its participation (the
+delivered fraction of its transmissions). Round times are fenced with
+``torch.cuda.synchronize()``.
 The flags are the reference launcher's that the port covers; its other
 flags are refused with the ROADMAP.md item that will port them.
 """
@@ -43,16 +55,6 @@ from repro_torch.optim import packing
 _NOT_PORTED = {
     "--shard": "sharding/shardexec.py -> torch.distributed",
     "--hop-impl": "sharding/shardexec.py -> torch.distributed",
-    "--overlap": "faults, push_sum, tiers and overlap",
-    "--drop-rate": "faults, push_sum, tiers and overlap",
-    "--stall-rate": "faults, push_sum, tiers and overlap",
-    "--fault-seed": "faults, push_sum, tiers and overlap",
-    "--n-pods": "faults, push_sum, tiers and overlap",
-    "--intra-topology": "faults, push_sum, tiers and overlap",
-    "--inter-topology": "faults, push_sum, tiers and overlap",
-    "--inter-codec": "faults, push_sum, tiers and overlap",
-    "--intra-drop-rate": "faults, push_sum, tiers and overlap",
-    "--intra-stall-rate": "faults, push_sum, tiers and overlap",
     "--trace": "telemetry",
     "--profile": "telemetry",
 }
@@ -69,17 +71,26 @@ def build_run(arch: str, *, reduced: bool = False, groups: int = 4,
               impl: str = "auto", comm: str = "server", codec: str = "fp32",
               moment_codec: str = "fp32", downlink_codec: str = "",
               mix_rounds: int = 1, staleness: int = 1,
-              metrics: str = "final", seed: int = 0, device="cuda"):
+              drop_rate: float = 0.0, stall_rate: float = 0.0,
+              fault_seed: int = 0, overlap: bool = False, n_pods: int = 0,
+              intra_topology: str = "ring", inter_topology: str = "push_sum",
+              inter_codec: str = "", intra_drop_rate: float = 0.0,
+              intra_stall_rate: float = 0.0, metrics: str = "final",
+              seed: int = 0, device="cuda"):
     """Model, layout (None for the pytree round), round, initial state,
-    round config and a ``rebuild(lcfg)`` for another config of the same
-    run. Returns (cfg, model, layout, round_fn, state, lcfg, rebuild).
-    The exchange's codecs draw from codec seed 0, as the reference
-    launcher's do."""
+    round config, a ``rebuild(lcfg)`` for another config of the same run,
+    and the exchange. Returns (cfg, model, layout, round_fn, state, lcfg,
+    rebuild, exchange). The exchange's codecs draw from codec seed 0, as
+    the reference launcher's do; its fault plan from ``fault_seed``."""
     cfg, model, params, layout, optimizer = _model_and_opt(
         arch, reduced, packed, opt, lr, impl, seed, device)
     exchange = comm_mod.get_exchange(
         comm, codec, groups, mix_rounds=mix_rounds, staleness=staleness,
-        impl=impl, moment_codec=moment_codec, downlink_codec=downlink_codec)
+        impl=impl, moment_codec=moment_codec, downlink_codec=downlink_codec,
+        drop_rate=drop_rate, stall_rate=stall_rate, fault_seed=fault_seed,
+        overlap=overlap, n_pods=n_pods, intra_topology=intra_topology,
+        inter_topology=inter_topology, inter_codec=inter_codec,
+        intra_drop_rate=intra_drop_rate, intra_stall_rate=intra_stall_rate)
     lcfg = lsgd.LocalSGDConfig(
         n_groups=groups, inner_steps=max(t_i) if t_i else t_inner,
         t_i=tuple(t_i) if t_i else None, threshold=threshold,
@@ -89,9 +100,10 @@ def build_run(arch: str, *, reduced: bool = False, groups: int = 4,
         return lsgd.make_local_round(model.loss, optimizer, lc,
                                      layout=layout, exchange=exchange)
 
+    rnd = rebuild(lcfg)         # refuses what the round cannot run
     state = lsgd.init_state(params, optimizer, groups, layout,
                             exchange=exchange)
-    return cfg, model, layout, rebuild(lcfg), state, lcfg, rebuild
+    return cfg, model, layout, rnd, state, lcfg, rebuild, exchange
 
 
 def build_sync(arch: str, *, reduced: bool = False, packed: bool = True,
@@ -153,8 +165,31 @@ def main(argv=None) -> None:
                          "plain versions")
     ap.add_argument("--comm", "--topology", dest="comm", default="server",
                     help="exchange topology: server, ring, gossip, "
-                         "async_stale or none (push_sum and hierarchical "
-                         "are not ported yet)")
+                         "async_stale, push_sum (loss-tolerant ratio "
+                         "consensus), hierarchical (pods, then across "
+                         "them) or none")
+    ap.add_argument("--n-pods", type=int, default=0,
+                    help="hierarchical only: pod count P; must divide "
+                         "--groups (pods of G/P groups)")
+    ap.add_argument("--intra-topology", default="ring",
+                    choices=["ring", "server"],
+                    help="hierarchical: the within-pod stage")
+    ap.add_argument("--inter-topology", default="push_sum",
+                    choices=["push_sum", "server"],
+                    help="hierarchical: the cross-pod stage, push_sum over "
+                         "the lossy tier or the reliable leader mean")
+    ap.add_argument("--inter-codec", default="",
+                    choices=["", "fp32", "fp16", "bf16", "int8", "int8z"],
+                    help="hierarchical: the cross-pod tier's codec "
+                         "(default: each stream's own); int8/int8z need "
+                         "--inter-topology server")
+    ap.add_argument("--intra-drop-rate", type=float, default=0.0,
+                    help="hierarchical: per-edge drop probability within "
+                         "pods (its own seed lane; --drop-rate arms the "
+                         "cross-pod tier)")
+    ap.add_argument("--intra-stall-rate", type=float, default=0.0,
+                    help="hierarchical: per-round stall probability "
+                         "within pods")
     ap.add_argument("--codec", default="fp32",
                     help="params wire codec: fp32, fp16, bf16, int8, "
                          "int8z or topk (lossy codecs need --packed)")
@@ -169,6 +204,19 @@ def main(argv=None) -> None:
                     help="W hops per round on ring/gossip")
     ap.add_argument("--staleness", type=int, default=1,
                     help="staleness bound s of async_stale")
+    ap.add_argument("--overlap", action="store_true",
+                    help="delayed mixing: each round mixes the previous "
+                         "round's payload (needs --packed and server, ring "
+                         "or gossip)")
+    ap.add_argument("--drop-rate", type=float, default=0.0,
+                    help="fault injection: per-edge packet-drop "
+                         "probability in [0, 1); 0 keeps the fault-free "
+                         "exchange")
+    ap.add_argument("--stall-rate", type=float, default=0.0,
+                    help="per-round node stall probability in [0, 1)")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="seed of the fault masks (pure in (round, seed): "
+                         "reruns and resumes replay the same faults)")
     ap.add_argument("--lr", type=float, default=0.05)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=1)
@@ -191,12 +239,19 @@ def main(argv=None) -> None:
                  "telemetry: OnlineT needs the fenced exchange phases)")
     if args.mode == "sync" and (args.comm != "server" or args.codec != "fp32"
                                 or args.moment_codec != "fp32"
-                                or args.downlink_codec):
-        ap.error("--comm/--codec select the local-SGD model exchange; "
-                 "sync-DP all-reduces gradients every step and has no "
-                 "exchange to configure")
+                                or args.downlink_codec or args.overlap
+                                or args.drop_rate or args.stall_rate
+                                or args.n_pods or args.inter_codec
+                                or args.intra_drop_rate
+                                or args.intra_stall_rate):
+        ap.error("--comm/--codec/--drop-rate select the local-SGD model "
+                 "exchange; sync-DP all-reduces gradients every step and "
+                 "has no exchange to configure")
     if args.impl != "auto" and not args.packed:
         ap.error("--impl selects the packed fused kernels; add --packed")
+    if args.overlap and not args.packed:
+        ap.error("--overlap double-buffers the packed flat stream payload "
+                 "(comm['inflight'], DESIGN.md §14); add --packed")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         ap.error("--device cuda, but CUDA is not available here: run on a "
@@ -231,18 +286,28 @@ def main(argv=None) -> None:
                  else state["params"])
     else:
         try:
-            cfg, model, layout, rnd, state, lcfg, rebuild = build_run(
-                args.arch, groups=args.groups, t_inner=args.t_inner, t_i=t_i,
-                threshold=args.threshold, comm=args.comm, codec=args.codec,
-                moment_codec=args.moment_codec,
-                downlink_codec=args.downlink_codec,
-                mix_rounds=args.mix_rounds, staleness=args.staleness,
-                metrics="traj" if args.adaptive_t else "final", **common)
-        except NotImplementedError as e:
+            cfg, model, layout, rnd, state, lcfg, rebuild, exchange = \
+                build_run(
+                    args.arch, groups=args.groups, t_inner=args.t_inner,
+                    t_i=t_i, threshold=args.threshold, comm=args.comm,
+                    codec=args.codec, moment_codec=args.moment_codec,
+                    downlink_codec=args.downlink_codec,
+                    mix_rounds=args.mix_rounds, staleness=args.staleness,
+                    drop_rate=args.drop_rate, stall_rate=args.stall_rate,
+                    fault_seed=args.fault_seed, overlap=args.overlap,
+                    n_pods=args.n_pods, intra_topology=args.intra_topology,
+                    inter_topology=args.inter_topology,
+                    inter_codec=args.inter_codec,
+                    intra_drop_rate=args.intra_drop_rate,
+                    intra_stall_rate=args.intra_stall_rate,
+                    metrics="traj" if args.adaptive_t else "final", **common)
+        except (NotImplementedError, ValueError) as e:
             ap.error(str(e))
         _header(cfg, model, args, device)
-        # the reliable network: the cost ratio is not repriced by delivery
-        ctl = AdaptiveT(r=args.cost_ratio) if args.adaptive_t else None
+        # on a lossy network a useful round costs 1/delivery attempts'
+        # worth of link time: r shrinks and the controller's T grows
+        ctl = (AdaptiveT(r=args.cost_ratio * exchange.delivery_rate)
+               if args.adaptive_t else None)
         t_cur = lcfg.inner_steps
         pipe = TokenPipeline(cfg.vocab_size, args.seq, seed=args.seed)
         batches = pipe.batches((args.groups, args.per_group))
@@ -274,7 +339,7 @@ def main(argv=None) -> None:
                       f"part {float(m['participation']):.2f} "
                       f"cons {float(m['consensus_sq'].mean()):.3e} "
                       f"({seconds:.2f}s)")
-        print(f"comm {args.comm}/{args.codec}: {wire_total:,} wire bytes over "
+        print(f"comm {exchange.name}: {wire_total:,} wire bytes over "
               f"{args.rounds} rounds")
         final = lsgd.server_params(state, layout)
     if args.checkpoint:

@@ -40,24 +40,48 @@ def test_cli_defaults_to_cuda_and_refuses_without_it():
         assert "round " not in out.stdout
 
 
-def test_cli_refuses_flags_outside_the_slice():
-    for extra in (["--adaptive-t", "online"], ["--comm", "push_sum"],
-                  ["--overlap"], ["--trace", "x.jsonl"]):
-        out = _run(["--device", "cpu"] + extra)
-        assert out.returncode != 0
-        assert "not ported yet" in out.stderr, (extra, out.stderr)
-    out = _run(["--device", "cpu", "--comm", "push_sum"])
-    assert "push_sum" in out.stderr and "Queue A item 4" in out.stderr
+def _main(args, capsys, cmd=CMD):
+    """The launcher's ``main`` in this process (its refusals and small CPU
+    runs, without a new interpreter each): (exit code, stdout, stderr)."""
+    from repro_torch.launch import train
+    try:
+        train.main(cmd[3:] + args)
+        code = 0
+    except SystemExit as e:
+        code = e.code
+    out = capsys.readouterr()
+    return code, out.out, out.err
+
+
+def test_cli_refuses_flags_outside_the_slice(capsys):
+    for extra in (["--adaptive-t", "online"], ["--trace", "x.jsonl"],
+                  ["--profile", "prof"], ["--shard", "2"],
+                  ["--hop-impl", "allgather"]):
+        code, _, err = _main(["--device", "cpu"] + extra, capsys)
+        assert code != 0
+        assert "not ported yet" in err and extra[0] in err, (extra, err)
+    # the packed round's exchange flags on the pytree round: overlap needs
+    # the flat buffer (the reference refuses it too); push_sum and faults
+    # are not ported there yet
+    code, _, err = _main(["--device", "cpu", "--overlap"], capsys, TREE_CMD)
+    assert code != 0 and "add --packed" in err
+    for extra in (["--comm", "push_sum"], ["--drop-rate", "0.1"]):
+        code, _, err = _main(["--device", "cpu"] + extra, capsys, TREE_CMD)
+        assert code != 0 and "Queue A item 1b" in err, err
     # the pytree round: int8 needs the flat buffer (the reference refuses
     # it too); fp16 on the tree path is not ported yet
-    out = _run(["--device", "cpu", "--codec", "int8"], TREE_CMD)
-    assert out.returncode != 0 and "packed" in out.stderr, out.stderr
-    out = _run(["--device", "cpu", "--codec", "fp16"], TREE_CMD)
-    assert out.returncode != 0 and "Queue A item 1b" in out.stderr
-    out = _run(["--device", "cpu", "--impl", "torch"], TREE_CMD)
-    assert out.returncode != 0 and "add --packed" in out.stderr
-    out = _run(["--device", "cpu", "--mode", "sync", "--comm", "ring"])
-    assert out.returncode != 0 and "no exchange" in out.stderr
+    code, _, err = _main(["--device", "cpu", "--codec", "int8"], capsys,
+                         TREE_CMD)
+    assert code != 0 and "packed" in err, err
+    code, _, err = _main(["--device", "cpu", "--codec", "fp16"], capsys,
+                         TREE_CMD)
+    assert code != 0 and "Queue A item 1b" in err
+    code, _, err = _main(["--device", "cpu", "--impl", "torch"], capsys,
+                         TREE_CMD)
+    assert code != 0 and "add --packed" in err
+    code, _, err = _main(["--device", "cpu", "--mode", "sync", "--comm",
+                          "ring"], capsys)
+    assert code != 0 and "no exchange" in err
 
 
 def _lines(out, head):
@@ -167,3 +191,44 @@ def test_serve_cli_defaults_to_cuda_and_refuses_unported_archs():
         assert "requests" not in out.stdout
     out = serve(["--device", "cpu", "--arch", "qwen3-32b"])
     assert out.returncode != 0 and "not ported yet" in out.stderr
+
+
+def test_cli_runs_faults_tiers_and_overlap_on_cpu(capsys):
+    """push_sum under drops, the two tiers over a lossy DCN and the
+    overlapped ring with int8, as the reference launcher takes them; each
+    round prints its participation; the reference's refusals by name."""
+    for extra, name in (
+            (["--comm", "push_sum", "--drop-rate", "0.3", "--stall-rate",
+              "0.1", "--fault-seed", "1"], "push_sum/fp32+drop0.3@1"),
+            (["--comm", "hierarchical", "--groups", "4", "--n-pods", "2",
+              "--drop-rate", "0.075", "--intra-drop-rate", "0.05"],
+             "hier[ringx2|push_sum]/fp32+drop[i0.05@1,x0.075@2]"),
+            (["--comm", "hierarchical", "--groups", "4", "--n-pods", "2",
+              "--intra-topology", "server", "--inter-topology", "server",
+              "--inter-codec", "int8"], "hier[serverx2|server]/fp32+x:int8"),
+            (["--comm", "ring", "--codec", "int8", "--groups", "4",
+              "--overlap"], "ring/int8+ov")):
+        code, out, err = _main(["--device", "cpu"] + extra, capsys)
+        assert code == 0, err
+        rounds = [l for l in out.splitlines() if l.startswith("round ")]
+        assert len(rounds) == 2 and " part " in rounds[1]
+        assert f"comm {name}:" in out, out
+    code, out, _ = _main(["--device", "cpu", "--comm", "server",
+                          "--drop-rate", "0.5", "--rounds", "4",
+                          "--fault-seed", "3"], capsys)
+    parts = [float(l.split(" part ")[1].split()[0])
+             for l in out.splitlines() if l.startswith("round ")]
+    assert code == 0 and len(parts) == 4
+    assert min(parts) < 1.0 and all(0.0 <= p <= 1.0 for p in parts)
+    for extra, why in ((["--comm", "push_sum", "--codec", "int8"],
+                        "valid push_sum codecs"),
+                       (["--comm", "hierarchical", "--n-pods", "3"],
+                        "divide"),
+                       (["--comm", "ring", "--overlap", "--mix-rounds", "2"],
+                        "mix_rounds"),
+                       (["--comm", "server", "--n-pods", "2"],
+                        "hierarchical"),
+                       (["--mode", "sync", "--drop-rate", "0.1"],
+                        "no exchange")):
+        code, _, err = _main(["--device", "cpu"] + extra, capsys)
+        assert code != 0 and why in err, (extra, err)
