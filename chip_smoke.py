@@ -236,12 +236,44 @@ Phases, in order; any failure raises and the script exits non-zero:
    --drop-rate 0.075`` and ``--comm ring --codec int8 --overlap`` must
    each exit 0 and print each round's participation.
 
+13. the engine's other model families at their published widths, the
+   depth cut only where one card forces it (``FAMILY_SERVED``,
+   ``FAMILY_TRAIN``). First the flash kernel in bfloat16 at each dense
+   and moe model's 1024-token prefill geometry and the decode kernel with
+   bfloat16 queries at each model's decode geometry, against their plain
+   versions (``BF16_STEP`` against the float32 plain version; flash also
+   within ``BF16_REF`` of the bfloat16 plain version), each timed beside
+   its bound and flash beside SDPA. Then, the counts set to 0: packed
+   local-SGD rounds (server/fp32, T 4, 2 x 128 tokens a group) of
+   granite-moe-1b-a400m (sgd and momentum at G 4 on 9 of 24 layers,
+   adamw at G 2 on 19), zamba2-7b (sgd, G 2, 10 of 81 layers) and
+   xlstm-1.3b (sgd, G 2, 12 of 48 layers), each round launching its
+   update kernel T times and ``sq_norm_groups`` twice, its losses finite
+   and, at init, within 1.5 of ln(padded vocab); the granite-moe adamw
+   run's server params saved, restored through ``serve.handoff`` equal
+   bit for bit, and served. Then every family model through the engine
+   from seeded params: granite-moe (all 24 layers), qwen3-32b (8 of 64),
+   phi3.5-moe (4 of 32), zamba2-7b (all 81), xlstm-1.3b (all 48),
+   nemotron-4-15b (8 of 32), qwen1.5-110b (4 of 80) and llama3-405b (2 of
+   126, 2 requests): 8 slots, pages of 16, a Poisson workload of 8
+   requests (prompts of 512-1024 tokens for dense and moe, through the
+   flash prefill; 4 requests of 32-64 tokens for hybrid and ssm, whose
+   prefill runs token by token), the tokens of the 2 requests with the
+   shortest prompts equal under the continuous and static policies and
+   replayed alone, the attention launches as
+   worked out from the engines' steps and prefills, no kernel off the
+   path launched (``mamba_chunk`` none: the models' mamba is plain, as
+   in the reference). One granite-moe round and three qwen3-32b decode
+   steps under ``torch.profiler``. Last, the update kernels and the norm
+   against their plain versions at each round's (G, N) buffer.
+
 The line before the last is one JSON object with each kernel's numbers
 (the launches of phases 5 and 8 for the first eight, of phase 10's
 ``ops`` path for the last four; the update kernels and
 ``sq_norm_groups`` also carry phase 11's ``microbatch_launches`` and
 ``sync_launches``, and every kernel phase 12's full-width
-``fault_launches``, each path's own count; ``paged_decode_attention``
+``fault_launches``, and the kernels of phase 13's path its
+``family_launches``, each path's own count; ``paged_decode_attention``
 and ``mamba_chunk`` also carry ``device_ms``, the device's time alone at
 the shape of their ``ms``); the last line is ``{"ok": true, "device":
 {...}}``.
@@ -249,6 +281,7 @@ the shape of their ``ms``); the last line is ``{"ok": true, "device":
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import statistics
@@ -2338,15 +2371,17 @@ def _lenet(torch):
     return cfg, model, params
 
 
-def _profiled(torch, label, fn):
+def _profiled(torch, label, fn, cpu=True):
     """Run ``fn`` once under torch.profiler: the device's busy share of the
     fenced call and its device time by kernel. Returns what ``fn``
-    returns."""
+    returns. ``cpu=False`` records the device's activity alone (a call of
+    100k launches and more, whose host events would take minutes to
+    gather)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA] + (
+            [ProfilerActivity.CPU] if cpu else [])) as prof:
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
@@ -3203,6 +3238,502 @@ def phase12(torch, K):
     return {"fault_launches": counts}
 
 
+# Phase 13: the engine's other model families at full width (their
+# published widths; depth cut where one card forces it). Served: (arch,
+# layers on the card or None for all, requests); dense and moe through the
+# flash prefill at the 1024 bucket, hybrid and ssm token by token at 64,
+# 4 requests (at 81 and 48 layers a prompt token costs ~70-150 ms of the
+# host's time, and the script has 1200 s in all).
+FAMILY_SERVE = dict(n_slots=8, page_size=16, max_prompt=1024, max_new=16)
+FAMILY_LOAD = dict(rate=50, prompt_len=(512, 1024), max_new=(8, 16), seed=0)
+RECURRENT_SERVE = dict(FAMILY_SERVE, max_prompt=64)
+RECURRENT_LOAD = dict(FAMILY_LOAD, prompt_len=(32, 64))
+FAMILY_SERVED = (
+    ("granite-moe-1b-a400m", None, 8),
+    ("qwen3-32b", 8, 8),
+    ("phi3.5-moe-42b-a6.6b", 4, 8),
+    ("zamba2-7b", None, 4),
+    ("xlstm-1.3b", None, 4),
+    ("nemotron-4-15b", 8, 8),
+    ("qwen1.5-110b", 4, 8),
+    ("llama3-405b", 2, 2),
+)
+# packed rounds, server/fp32, T 4, 2 x 128 tokens a group: (arch, layers,
+# G, opt, lr, rounds). The packed round refuses a (G, N) buffer past the
+# int32 index space (2**31 - 1 elements) as the reference's does, which
+# sets each depth: G * N stays under it.
+FAMILY_TRAIN = (
+    ("granite-moe-1b-a400m", 9, 4, "sgd", 0.05, 2),
+    ("granite-moe-1b-a400m", 9, 4, "momentum", 0.05, 2),
+    ("granite-moe-1b-a400m", 19, 2, "adamw", 1e-3, 2),
+    ("zamba2-7b", 10, 2, "sgd", 0.05, 1),
+    ("xlstm-1.3b", 12, 2, "sgd", 0.05, 1),
+)
+PARITY_REQUESTS = 2          # replayed under the static policy and alone
+LOSS_NEAR_LN_V = 1.5         # |loss at init - ln(padded vocab)|
+BF16_OPS_PER_S = 989e12      # H100 SXM data sheet, bf16 tensor cores, dense
+FAMILY_PATH = ("fused_sgd", "fused_momentum", "fused_adamw",
+               "sq_norm_groups", "flash_attention", "paged_decode_attention")
+
+
+def _family_cfg(arch, layers=None, **changes):
+    from repro_torch.configs.base import get_config
+    cfg = get_config(arch)
+    if layers is not None:
+        changes["n_layers"] = layers
+    return dataclasses.replace(cfg, **changes)
+
+
+def family_kernel_holds(torch):
+    """Flash (bf16 prefill at the 1024 bucket) and paged decode (bf16 q
+    over the f32 pool) against their plain versions at each family
+    model's geometry, and their times beside their bounds (and SDPA's,
+    for flash). Returns the max abs errors by kernel."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    errs = {"flash_attention": 0.0, "paged_decode_attention": 0.0}
+    seen_flash, seen_decode = set(), set()
+    for arch, _, _ in FAMILY_SERVED:
+        cfg = _family_cfg(arch)
+        H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        if cfg.family in ("dense", "moe") and (H, KV, hd) not in seen_flash:
+            seen_flash.add((H, KV, hd))
+            S = FAMILY_SERVE["max_prompt"]
+            q = torch.randn((1, H, S, hd), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            k, v = (torch.randn((1, KV, S, hd), generator=gen, device="cuda")
+                    .to(torch.bfloat16) for _ in range(2))
+            tag = f"flash_attention {arch} (1, {H}, {KV}, {S}, {hd}) bf16"
+            got = fa.flash_attention(q, k, v, impl="cuda")
+            e1 = compare(tag + " (plain, bf16 p)", got.float(),
+                         fa.flash_attention(q, k, v, impl="torch").float(),
+                         **BF16_REF)
+            f32 = fa.flash_attention(q.float(), k.float(), v.float(),
+                                     impl="torch").to(torch.bfloat16)
+            e2 = compare(tag + " (float32 plain)", got.float(), f32.float(),
+                         **BF16_STEP)
+            errs["flash_attention"] = max(errs["flash_attention"], e2)
+            kr, vr = (k.repeat_interleave(H // KV, 1),
+                      v.repeat_interleave(H // KV, 1))
+            t = call_and_device_ms(
+                torch, lambda: fa.flash_attention(q, k, v, impl="cuda"),
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, kr, vr, is_causal=True))
+            nbytes = (2 * H + 2 * KV) * S * hd * 2
+            b_ms, b_by = bound_of(nbytes, 4 * hd * S * (S + 1) // 2 * H,
+                                  BF16_OPS_PER_S)
+            log(f"{tag}: max abs err {e1:.3e} against the plain version, "
+                f"{e2:.3e} against the float32 plain version; kernel_ms "
+                f"{t['ms']:.4f} (device {t['device_ms']:.4f}) bound_ms "
+                f"{b_ms:.4f} ({b_by}: bf16 at {BF16_OPS_PER_S / 1e12:.0f} "
+                f"TFLOP/s) library_ms {t['library_ms']:.4f} (device "
+                f"{t['library_device_ms']:.4f}; sdpa causal, bf16)")
+            del q, k, v, kr, vr, got, f32
+        if cfg.family == "ssm":
+            continue
+        g = H // KV
+        if (KV, g, hd, cfg.family) in seen_decode:
+            continue
+        seen_decode.add((KV, g, hd, cfg.family))
+        kw_serve = RECURRENT_SERVE if cfg.family == "hybrid" else FAMILY_SERVE
+        lo, hi = (RECURRENT_LOAD if cfg.family == "hybrid"
+                  else FAMILY_LOAD)["prompt_len"]
+        max_len = kw_serve["max_prompt"] + kw_serve["max_new"]
+        nblk = -(-max_len // 16)
+        lens = torch.randint(lo + 1, max_len + 1, (8,), generator=torch.
+                             Generator().manual_seed(0)).tolist()
+        kw = dict(B=8, n_kv=KV, g=g, hd=hd, ps=16, nblk=nblk)
+        q, pool, rk, rv, ln = _decode_case(torch, gen, **kw, lengths=lens)
+        qb = q.to(torch.bfloat16)
+        ak = dict(page_size=16, n_kv=KV)
+
+        def run(impl="cuda"):
+            return da.paged_decode_attention(qb, pool, rk, rv, ln, impl=impl,
+                                             **ak)
+        got = run()
+        want = da.paged_decode_attention(qb.float(), pool, rk, rv, ln,
+                                         impl="torch", **ak)
+        err = compare(f"paged_decode_attention {arch} {kw} bf16 q", got.float(),
+                      want.to(torch.bfloat16).float(), **BF16_STEP)
+        errs["paged_decode_attention"] = max(errs["paged_decode_attention"],
+                                             err)
+        b_ms, b_by = _decode_bound(q, KV, ln, nblk)
+        log(f"paged_decode_attention {arch} {kw} bf16 q, lengths {lens}: "
+            f"max abs err {err:.3e} (BF16_STEP); kernel_ms "
+            f"{time_ms(run, torch):.4f} (device "
+            f"{time_ms(run, torch, device_only=True):.4f}) bound_ms "
+            f"{b_ms:.4f} ({b_by}) plain_ms "
+            f"{time_ms(lambda: run('torch'), torch):.4f}")
+        del q, qb, pool, got, want
+    torch.cuda.empty_cache()
+    return errs
+
+
+def hold_updates(torch, K, shape, opts):
+    """The update kernels ``opts`` and ``sq_norm_groups`` against their
+    plain versions at a family round's (G, N) buffer (random values, all
+    rows active): sgd bit-equal, momentum and adamw within ``EW_TOL`` (the
+    plain version taken slice by slice of the columns: it is elementwise,
+    and the whole buffer three times over would not fit beside the
+    kernel's), the norm within ``NORM_RTOL``. Returns the errors."""
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    rows, n = shape
+    errs = {}
+    p = torch.randn(shape, generator=gen, device="cuda")
+    g = torch.randn(shape, generator=gen, device="cuda")
+    step = 1 << 27
+
+    def sliced(name, outs, plain):
+        err = 0.0
+        for a in range(0, n, step):
+            want = plain(slice(a, a + step))
+            for label, k, w in zip("pmv", outs, want):
+                err = max(err, compare(f"{name} {label} {shape}",
+                                       k[:, a:a + step], w, **EW_TOL))
+        return err
+
+    if "sgd" in opts:
+        kp, wp = p.clone(), p.clone()
+        K.fused_sgd.fused_sgd(kp, g, lr=0.05, impl="cuda")
+        K.fused_sgd.fused_sgd(wp, g, lr=0.05, impl="torch")
+        if not torch.equal(kp, wp):
+            fail(f"fused_sgd {shape}: differs from the plain version")
+        errs["fused_sgd"] = 0.0
+        del kp, wp
+    if "momentum" in opts:
+        m = torch.randn(shape, generator=gen, device="cuda") * 0.1
+        kp, km = p.clone(), m.clone()
+        K.fused_momentum.fused_momentum(kp, g, km, lr=0.05, beta=0.9,
+                                        impl="cuda")
+        errs["fused_momentum"] = sliced(
+            "fused_momentum", (kp, km), lambda s: ref.momentum_ref(
+                p[:, s], g[:, s], m[:, s], lr=0.05, beta=0.9))
+        del m, kp, km
+    if "adamw" in opts:
+        m = torch.randn(shape, generator=gen, device="cuda") * 0.1
+        v = torch.rand(shape, generator=gen, device="cuda") * 0.01
+        count = torch.arange(1, rows + 1, device="cuda") * 3
+        kp, km, kv = p.clone(), m.clone(), v.clone()
+        K.fused_adamw.fused_adamw(kp, g, km, kv, count, lr=1e-3, wd=0.01,
+                                  impl="cuda")
+        bc = ref.adamw_bias_correction(count)
+        errs["fused_adamw"] = sliced(
+            "fused_adamw", (kp, km, kv), lambda s: ref.adamw_ref(
+                p[:, s], g[:, s], m[:, s], v[:, s], bc, lr=1e-3, wd=0.01))
+        del m, v, kp, km, kv
+    errs["sq_norm_groups"] = compare(
+        f"sq_norm_groups {shape}", K.sq_norm.sq_norm_groups(p, impl="cuda"),
+        ref.sq_norm_groups_ref(p), rtol=NORM_RTOL, atol=0.0)
+    log(f"update kernels {sorted(errs)} agree with their plain versions at "
+        f"{shape}: {errs}")
+    del p, g
+    torch.cuda.empty_cache()
+    return errs
+
+
+def family_round(torch, K, arch, layers, G, opt, lr, rounds, ckpt=None,
+                 profile=False):
+    """A family model's packed local-SGD round at full width (server/fp32,
+    T 4, 2 x 128 tokens a group): the launches of each round, finite
+    losses near ln(vocab) at init, fenced seconds and peak memory. With
+    ``ckpt`` the server params are saved there and returned (on the
+    host); with ``profile`` one more round runs under torch.profiler."""
+    from repro_torch import comm, optim
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.core import localsgd as lsgd
+    from repro_torch.data.synthetic import TokenPipeline
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import packing
+
+    T = 4
+    cfg = _family_cfg(arch, layers)
+    tag = f"family train {arch} {layers} layers G {G} {opt}"
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, schedule="rect")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    layout = packing.layout_of(params)
+    optimizer = optim.get(opt, lr, packed=True, impl="auto")
+    exchange = comm.get_exchange("server", "fp32", G)
+    rnd = lsgd.make_local_round(
+        model.loss, optimizer, lsgd.LocalSGDConfig(n_groups=G, inner_steps=T),
+        layout=layout, exchange=exchange)
+    tokens = next(TokenPipeline(cfg.vocab_size, 128, seed=0).batches(
+        (G, 2)))["tokens"]
+    batch = {"tokens": torch.as_tensor(tokens, device="cuda")}
+    ln_v = float(torch.log(torch.tensor(float(cfg.padded_vocab))))
+    with torch.no_grad():
+        loss0 = model.loss(params, {"tokens": batch["tokens"][0]}).item()
+    if not abs(loss0 - ln_v) <= LOSS_NEAR_LN_V:
+        fail(f"{tag}: the loss at init {loss0:.4f} is not near ln(padded "
+             f"vocab) = {ln_v:.4f}")
+    state = lsgd.init_state(params, optimizer, G, layout, exchange=exchange)
+    del params
+    mods = {"fused_sgd": K.fused_sgd, "fused_momentum": K.fused_momentum,
+            "fused_adamw": K.fused_adamw, "sq_norm_groups": K.sq_norm}
+    for n in range(rounds):
+        before = {k: m.launches for k, m in mods.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = rnd(state, batch)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        got = {k: mod.launches - before[k] for k, mod in mods.items()}
+        want = dict.fromkeys(mods, 0)
+        want[f"fused_{opt}"], want["sq_norm_groups"] = T, 2
+        if got != want:
+            fail(f"{tag} round {n}: launches {got}, expected {want}")
+        loss = m["loss"]
+        if loss.shape != (G,) or not bool(torch.isfinite(loss).all()) or \
+                not bool(torch.isfinite(state["params"]).all()):
+            fail(f"{tag} round {n}: loss {loss.tolist()} or params not "
+                 "finite")
+        log(f"{tag} round {n}: {sec:.4f} s fenced, loss "
+            f"{[round(x, 4) for x in loss.tolist()]} (at init {loss0:.4f}, "
+            f"ln padded vocab {ln_v:.4f}), gsq {m['grad_sq'].mean().item():.4e}, N "
+            f"{layout.size:,}, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    server = None
+    if ckpt:
+        tree = lsgd.server_params(state, layout)
+        ckpt_io.save(ckpt, tree, metadata={"arch": cfg.name, "mode":
+                                           "localsgd", "rounds": rounds})
+        server = {k: v.cpu() for k, v in zip(*_flat(tree))}
+        log(f"{tag}: server params -> {ckpt}.npz")
+    if profile:
+        t = time.perf_counter()
+        _profiled(torch, f"{tag} round", lambda: rnd(state, batch), cpu=False)
+        log(f"{tag}: the profiled round took {time.perf_counter() - t:.1f} s "
+            "with the profiler's gathering")
+    del state, rnd, model
+    torch.cuda.empty_cache()
+    return server, (G, layout.size)
+
+
+def _counted_engine(torch, model, params, ecfg, tally):
+    """An Engine whose step and prefill calls are tallied (steps,
+    prefills, prefill tokens), for the expected kernel launches."""
+    from repro_torch.serve import Engine, EngineConfig
+    eng = Engine(model, params, EngineConfig(**ecfg))
+    tally["bucket"] = eng.bucket
+    step, prefill = eng.progs.step, eng.progs.prefill
+
+    def counted_step(*a, **kw):
+        tally["steps"] += 1
+        return step(*a, **kw)
+
+    def counted_prefill(params, pool, toks, length, *a, **kw):
+        tally["prefills"] += 1
+        tally["prefill_tokens"] += int(length)
+        return prefill(params, pool, toks, length, *a, **kw)
+
+    eng.progs = dataclasses.replace(eng.progs, step=counted_step,
+                                    prefill=counted_prefill)
+    return eng
+
+
+def family_serve(torch, cfg, params, n_req, tmp, tally, profile=False):
+    """One family model through the engine at full width: the workload
+    under the continuous policy (fenced decode-step and prefill ms,
+    committed tok/s, peak memory), then the ``PARITY_REQUESTS`` with the
+    shortest prompts under the static policy and alone, whose tokens must
+    equal the continuous run's integer for integer."""
+    from repro_torch.models.api import build_model
+    from repro_torch.obs.trace import Trace
+    from repro_torch.serve import Request, drive_workload, poisson_workload
+
+    recurrent = cfg.family in ("hybrid", "ssm")
+    ecfg = RECURRENT_SERVE if recurrent else FAMILY_SERVE
+    load = RECURRENT_LOAD if recurrent else FAMILY_LOAD
+    model = build_model(dataclasses.replace(cfg, attn_impl="pallas"))
+    reqs = poisson_workload(n=n_req, vocab=cfg.vocab_size, **load)
+
+    def fresh(rs):
+        return [Request(r.rid, r.prompt.copy(), r.max_new, r.arrival)
+                for r in rs]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = _counted_engine(torch, model, params, ecfg, tally)
+    path = os.path.join(tmp, f"{cfg.name}.jsonl")
+    eng.trace = Trace(path, meta={"launcher": "chip_smoke", "arch": cfg.name})
+    t0 = time.perf_counter()
+    done, makespan = drive_workload(eng, fresh(reqs))
+    wall = time.perf_counter() - t0
+    eng.trace.close()
+    steps = [s for s in map(json.loads, open(path)) if s["kind"] == "step"]
+    decode = [s["phase_s"]["decode_step"] for s in steps
+              if "decode_step" in s["phase_s"]]
+    prefill = [s["phase_s"]["prefill"] / s["metrics"]["admitted"]
+               for s in steps if s["metrics"]["admitted"]]
+    cont = {c.rid: c.tokens for c in done}
+    for r in reqs:
+        toks = cont.get(r.rid)
+        if toks is None or len(toks) != min(r.max_new, ecfg["max_new"]) or \
+                not all(0 <= t < cfg.vocab_size for t in toks):
+            fail(f"{cfg.name} rid {r.rid}: tokens {toks}")
+    committed = sum(len(t) for t in cont.values())
+    log(f"family serve {cfg.name} ({cfg.n_layers} layers, {cfg.family}): "
+        f"{len(done)} requests, {committed} tokens in {makespan:.4f} s "
+        f"virtual ({committed / makespan:.1f} tok/s committed; {wall:.2f} s "
+        f"wall), decode step ms median {statistics.median(decode) * 1e3:.3f} "
+        f"over {len(decode)} steps, prefill ms median "
+        f"{statistics.median(prefill) * 1e3:.3f} (bucket {eng.bucket}), peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del eng
+    # the shortest prompts: the recurrent prefill runs token by token
+    first = sorted(reqs, key=lambda r: len(r.prompt))[:PARITY_REQUESTS]
+    stat = _counted_engine(torch, model, params, dict(ecfg, policy="static"),
+                           tally)
+    sdone, _ = drive_workload(stat, fresh(first))
+    iso = _counted_engine(torch, model, params, ecfg, tally)
+    bad = [c.rid for c in sdone if c.tokens != cont[c.rid]]
+    bad += [r.rid for r in fresh(first) if iso.run([r])[0].tokens
+            != cont[r.rid]]
+    if len(sdone) != len(first) or bad:
+        fail(f"{cfg.name}: static or isolated tokens differ for rids {bad}")
+    log(f"family serve {cfg.name}: {len(first)} requests' tokens equal "
+        "under the continuous and static policies and replayed alone")
+    del stat, iso
+    if profile:
+        profile_decode_steps(torch, _counted_engine(
+            torch, model, params, ecfg, tally), fresh(reqs))
+    torch.cuda.empty_cache()
+
+
+def _expected_attention(cfg, tally):
+    """The attention launches a family model's engines make: dense and
+    moe one flash launch a layer a prefill where the bucket holds two
+    512-blocks (the model's blocked branch) and one decode launch a layer
+    a step; hybrid one decode launch per shared attention use per step
+    and per prompt token; ssm none."""
+    if cfg.family in ("dense", "moe"):
+        flash = tally["bucket"] % 512 == 0 and tally["bucket"] >= 1024
+        return {"flash_attention": cfg.n_layers * tally["prefills"] * flash,
+                "paged_decode_attention": cfg.n_layers * tally["steps"]}
+    if cfg.family == "hybrid":
+        uses = cfg.n_layers // cfg.attn_every
+        return {"flash_attention": 0, "paged_decode_attention": uses * (
+            tally["steps"] + tally["prefill_tokens"])}
+    return {"flash_attention": 0, "paged_decode_attention": 0}
+
+
+def family_path(torch, K, tmp):
+    """Phase 13's counted path: the packed rounds of FAMILY_TRAIN (the
+    granite-moe adamw run's server params checkpointed, restored through
+    ``serve.handoff`` bit for bit and served), then every FAMILY_SERVED
+    model through the engine. Returns the launch counts of the path."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.api import build_model
+
+    _zero_all_counts(K)
+    shapes = {}
+    for i, (arch, layers, G, opt, lr, rounds) in enumerate(FAMILY_TRAIN):
+        t = time.perf_counter()
+        ckpt = os.path.join(tmp, "granite") if opt == "adamw" else None
+        server, shape = family_round(torch, K, arch, layers, G, opt, lr,
+                                     rounds, ckpt=ckpt, profile=i == 0)
+        _freed(torch, f"train {arch} {opt}")
+        shapes.setdefault(shape, set()).add(opt)
+        log(f"phase 13 train {arch} {opt}: {time.perf_counter() - t:.1f} s")
+        if ckpt:
+            _serve_trained(torch, arch, layers, ckpt, server, tmp)
+            del server
+            _freed(torch, f"serve the trained {arch}")
+    for arch, layers, n_req in FAMILY_SERVED:
+        t = time.perf_counter()
+        cfg = _family_cfg(arch, layers)
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                            "cuda")
+        tally = dict(steps=0, prefills=0, prefill_tokens=0)
+        before = (fa.launches, da.launches)
+        family_serve(torch, cfg, params, n_req, tmp, tally,
+                     profile=arch == "qwen3-32b")
+        _check_attention(cfg, tally, before, fa, da)
+        del params, model
+        _freed(torch, f"serve {arch}")
+        log(f"phase 13 serve {arch}: {time.perf_counter() - t:.1f} s")
+    counts = _all_counts(K)
+    log(f"phase 13 launches {counts}")
+    off = {k: v for k, v in counts.items() if k not in FAMILY_PATH and v}
+    if off:
+        fail(f"phase 13 launched kernels off its path: {off} (the models' "
+             "mamba stays plain, as in the reference)")
+    missing = [k for k in FAMILY_PATH if not counts[k]]
+    if missing:
+        fail(f"phase 13 never launched {missing}")
+    return {k: counts[k] for k in FAMILY_PATH}, shapes
+
+
+def _serve_trained(torch, arch, layers, ckpt, server, tmp):
+    """The trained checkpoint through ``serve.handoff``: the restored
+    params equal the round's server params bit for bit, and serve."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.api import build_model
+    from repro_torch.serve import restore_params
+
+    cfg = _family_cfg(arch, layers)
+    model = build_model(dataclasses.replace(cfg, attn_impl="pallas"))
+    params = restore_params(ckpt, model, device="cuda")
+    keys, leaves = _flat(params)
+    if keys != list(server) or not all(
+            torch.equal(a.cpu(), server[k]) for k, a in zip(keys, leaves)):
+        fail(f"{arch}: the served params differ from the round's server "
+             "params")
+    log(f"{arch} {layers} layers: the checkpoint restores through "
+        "serve.handoff equal to the round's server params bit for bit")
+    tally = dict(steps=0, prefills=0, prefill_tokens=0)
+    before = (fa.launches, da.launches)
+    family_serve(torch, cfg, params, PARITY_REQUESTS, tmp, tally)
+    _check_attention(cfg, tally, before, fa, da)
+
+
+def _freed(torch, what):
+    """Each model is freed before the next is built: nothing of it may
+    stay allocated on the card (reference cycles collected first)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 2**30
+    if held > 1.0:
+        live = sorted((o for o in gc.get_objects()
+                       if type(o) is torch.Tensor and o.is_cuda),
+                      key=lambda o: -o.numel())[:8]
+        fail(f"{what}: {held:.2f} GiB still allocated after it was freed; "
+             f"the largest live tensors {[tuple(o.shape) for o in live]}")
+    log(f"{what}: freed ({held:.2f} GiB allocated)")
+
+
+def _check_attention(cfg, tally, before, fa, da):
+    got = {"flash_attention": fa.launches - before[0],
+           "paged_decode_attention": da.launches - before[1]}
+    want = _expected_attention(cfg, tally)
+    if got != want:
+        fail(f"{cfg.name}: attention launches {got}, expected {want} "
+             f"({tally})")
+    log(f"{cfg.name}: attention launches {got} ({tally})")
+
+
+def phase13(torch, K):
+    """Phase 13: the engine's other model families at full width. Returns
+    the path's launches, as ``family_launches``."""
+    t0 = time.perf_counter()
+    errs = family_kernel_holds(torch)
+    log(f"phase 13 kernel holds: {time.perf_counter() - t0:.1f} s, {errs}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_p13_") as tmp:
+        counts, shapes = family_path(torch, K, tmp)
+    t = time.perf_counter()
+    for shape, opts in shapes.items():
+        hold_updates(torch, K, shape, opts)
+    log(f"phase 13 update holds: {time.perf_counter() - t:.1f} s")
+    log(f"phase 13: {time.perf_counter() - t0:.1f} s")
+    return {"family_launches": counts}, errs
+
+
 def _kernel_name(mangled):
     """A ptxas entry name, short: the kernel's name after its namespace
     and its raw template arguments (``paged_decode_kernel ILi64ELi1EE``:
@@ -3295,6 +3826,7 @@ def main() -> int:
     counts.update(ops_path(torch))
     by_path = phase11(torch, K)
     by_path.update(phase12(torch, K))
+    by_path.update(phase13(torch, K)[0])
 
     # again at the end, where a tail of the output still holds them
     log(built)

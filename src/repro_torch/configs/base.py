@@ -1,14 +1,16 @@
 """Architecture configuration (a copy of ``repro/configs/base.py``).
 
 ``ArchConfig`` keeps every field of the reference, so that ``reduced()``
-gives the same shapes in both packages. Only the paper's own dense models
-(``configs/paper.py``) are ported; the other architectures of the
-reference raise until their model families are (ROADMAP.md Queue A,
-"the remaining model families").
+gives the same shapes in both packages. Each architecture has one module
+here with its published ``CONFIG`` (the paper's own models share
+``paper.py``). The vlm and audio architectures (``internvl2-1b``,
+``whisper-base``) raise until their model builders are ported
+(ROADMAP.md Queue A item 9b).
 """
 from __future__ import annotations
 
 import dataclasses
+import importlib
 from typing import Optional
 
 
@@ -19,7 +21,8 @@ def round_up(x: int, multiple: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     """A single architecture configuration (``family`` selects the
-    builder in ``repro_torch.models.api``; only ``dense`` is ported)."""
+    builder in ``repro_torch.models.api``: dense | moe | hybrid | ssm;
+    vlm and audio are refused there)."""
 
     name: str
     family: str
@@ -72,6 +75,10 @@ class ArchConfig:
         return round_up(self.vocab_size, 256)
 
     @property
+    def d_inner(self) -> int:
+        return self.expand * self.d_model
+
+    @property
     def is_moe(self) -> bool:
         return self.n_experts > 0
 
@@ -105,21 +112,33 @@ class ArchConfig:
         )
 
 
-# the reference's other architectures, not ported yet
-_NOT_PORTED = (
-    "phi3.5-moe-42b-a6.6b", "zamba2-7b", "internvl2-1b",
-    "granite-moe-1b-a400m", "whisper-base", "llama3-405b", "qwen1.5-110b",
-    "xlstm-1.3b", "qwen3-32b", "nemotron-4-15b",
-)
+_MODULE_FOR = {
+    "phi3.5-moe-42b-a6.6b": "phi35_moe",
+    "zamba2-7b": "zamba2",
+    "granite-moe-1b-a400m": "granite_moe",
+    "llama3-405b": "llama3_405b",
+    "qwen1.5-110b": "qwen15_110b",
+    "xlstm-1.3b": "xlstm",
+    "qwen3-32b": "qwen3_32b",
+    "nemotron-4-15b": "nemotron4_15b",
+    "paper-mlp": "paper",
+    "paper-lenet": "paper",
+}
+# the reference's vlm and audio architectures, not ported yet
+_NOT_PORTED = ("internvl2-1b", "whisper-base")
 
 
 def get_config(arch_id: str) -> ArchConfig:
-    from repro_torch.configs.paper import CONFIGS
-    if arch_id in CONFIGS:
-        return CONFIGS[arch_id]
     if arch_id in _NOT_PORTED:
         raise NotImplementedError(
-            f"arch {arch_id!r} is not ported yet: only the paper's dense "
-            f"models {sorted(CONFIGS)} are (ROADMAP.md Queue A, 'the "
-            "remaining model families')")
-    raise KeyError(f"unknown arch {arch_id!r}; ported: {sorted(CONFIGS)}")
+            f"arch {arch_id!r} is not ported yet: its family (vlm, audio) "
+            "needs the ring-cache decode and the modality frontends "
+            "(ROADMAP.md Queue A item 9b)")
+    if arch_id not in _MODULE_FOR:
+        raise KeyError(f"unknown arch {arch_id!r}; ported: "
+                       f"{sorted(_MODULE_FOR)}")
+    mod = importlib.import_module(
+        f"repro_torch.configs.{_MODULE_FOR[arch_id]}")
+    if hasattr(mod, "CONFIGS"):
+        return mod.CONFIGS[arch_id]
+    return mod.CONFIG

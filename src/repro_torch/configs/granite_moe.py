@@ -1,0 +1,20 @@
+"""Granite-3.0-1B-A400M: 32 experts top-8, tiny experts (d_ff=512).
+[hf:ibm-granite/granite-3.0-1b-a400m-base]
+"""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="granite-moe-1b-a400m",
+    family="moe",
+    source="[hf:ibm-granite/granite-3.0-1b-a400m-base]",
+    n_layers=24,
+    d_model=1024,
+    n_heads=16,
+    n_kv_heads=8,
+    d_ff=512,
+    vocab_size=49155,
+    n_experts=32,
+    top_k=8,
+    mlp_type="swiglu",
+    tie_embeddings=True,
+)

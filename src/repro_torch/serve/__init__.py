@@ -1,10 +1,10 @@
-"""Continuous-batching serve engine (counterpart of ``repro/serve``,
-dense family).
+"""Continuous-batching serve engine (counterpart of ``repro/serve``:
+the dense, moe, hybrid and ssm families).
 
-  paging   one f32 pool (n_pages, page_elems) of KV pages on the device,
-           updated in place; host FreeList
-  decode   the per-layer decode step and bucketed prefill, through the
-           paged decode-attention and flash-attention kernels
+  paging   one f32 pool (n_pages, page_elems) of KV pages and recurrent-
+           state rows on the device, updated in place; host FreeList
+  decode   the per-layer decode step and the prefill of each family,
+           through the paged decode-attention and flash-attention kernels
   engine   the host scheduler: admit into freed slots every step, retire
            without changing a shape; static-batch policy for baselines
   handoff  restore trained params (pytree or packed flat buffer) from

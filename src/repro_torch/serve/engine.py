@@ -4,7 +4,8 @@
 N batch slots drive one fixed-shape decode step for the engine's whole
 life. Each tick the scheduler (1) admits queued requests into free
 slots: one fenced prefill per admission claims the slot's full page
-budget from the FreeList and writes the prompt's KV into the pool; (2)
+budget from the FreeList and writes the prompt's KV (and, for the
+recurrent families, its state) into the pool; (2)
 runs one batched decode step over all slots (inactive slots ride along
 against the trash page); (3) reads the step's tokens once, commits them
 and retires finished requests, freeing their rows.
@@ -88,6 +89,7 @@ class _Slot:
     rows: np.ndarray              # full allocation (for free())
     rows_k: np.ndarray            # (layers_kv, max_blocks)
     rows_v: np.ndarray
+    srows: np.ndarray             # (state_rows,) recurrent-state rows
     pos: int                      # tokens resident in the cache
     tokens: List[int]
 
@@ -135,16 +137,18 @@ class Engine:
             return False                     # backpressure: stay queued
         nk = g.n_layers_kv * g.max_blocks
         rows_k = rows[:nk].reshape(g.n_layers_kv, g.max_blocks)
-        rows_v = rows[nk:].reshape(g.n_layers_kv, g.max_blocks)
+        rows_v = rows[nk:2 * nk].reshape(g.n_layers_kv, g.max_blocks)
+        srows = rows[2 * nk:]
         prompt = np.asarray(req.prompt, np.int32)
         toks = np.zeros((1, self.bucket), np.int32)
         toks[:, :len(prompt)] = prompt[None]
         with self.trace.phase("prefill") as t:
             tok0, self.pool = t(self.progs.prefill(
-                self.params, self.pool, toks, len(prompt), rows_k, rows_v))
+                self.params, self.pool, toks, len(prompt), rows_k, rows_v,
+                srows))
         self.slots[slot_id] = _Slot(
             req=req, target=min(req.max_new, self.cfg.max_new), rows=rows,
-            rows_k=rows_k, rows_v=rows_v, pos=len(prompt),
+            rows_k=rows_k, rows_v=rows_v, srows=srows, pos=len(prompt),
             tokens=[int(tok0[0])])
         return True
 
@@ -161,15 +165,16 @@ class Engine:
         pos = np.zeros((B,), np.int32)
         rows_k = np.zeros((B, g.n_layers_kv, g.max_blocks), np.int32)
         rows_v = np.zeros_like(rows_k)
+        srows = np.zeros((B, g.state_rows), np.int32)
         active = np.zeros((B,), bool)
         for i, s in enumerate(self.slots):
             if s is None:
                 continue          # trash tables: rows 0, pos 0, token 0
             tokens[i] = s.tokens[-1]
             pos[i] = s.pos
-            rows_k[i], rows_v[i] = s.rows_k, s.rows_v
+            rows_k[i], rows_v[i], srows[i] = s.rows_k, s.rows_v, s.srows
             active[i] = True
-        return tokens, pos, rows_k, rows_v, active
+        return tokens, pos, rows_k, rows_v, active, srows
 
     def step(self) -> StepReport:
         """One scheduler tick: admit -> batched decode -> commit/retire.

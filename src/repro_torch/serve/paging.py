@@ -1,10 +1,17 @@
-"""Paged KV caches for the serve engine (counterpart of
-``repro/serve/paging.py``, the dense family's part).
+"""Paged caches for the serve engine (counterpart of
+``repro/serve/paging.py``).
 
 ONE float32 pool ``(n_pages, page_elems)`` on the device holds every
-request's KV cache: page row j of a request stores ``page_size`` tokens x
-``n_kv`` heads x ``head_dim`` floats of one layer's K (or V), token-major,
-which is what the decode kernel (``kernels/decode_attention.py``) reads.
+request's cache:
+
+  - KV pages: page row j of a request stores ``page_size`` tokens x
+    ``n_kv`` heads x ``head_dim`` floats of one layer's K (or V),
+    token-major, which is what the decode kernel
+    (``kernels/decode_attention.py``) reads.
+  - Recurrent-state rows: a slot's packed Mamba or xLSTM state (one flat
+    buffer through ``optim/packing``) split into ``page_elems``-wide
+    rows (``packing.pad_rows``) on its own pool rows.
+
 ``page_elems`` is rounded up to a multiple of 256, the reference's chunk
 quantum.
 
@@ -17,11 +24,10 @@ full page budget is claimed at admission and freed at retirement;
 admission defers (backpressure) when the pool is short.
 
 The reference's writes are functional (``.at[].set``) and rely on jit
-donating the pool; here the two writes update the pool in place with
+donating the pool; here the writes update the pool in place with
 ``index_put_``, so a token costs no copy of the pool. Several inactive
 slots may write the trash row in one call, in no fixed order; no active
-slot ever reads it. (``read_state`` / ``write_state`` of the recurrent
-families wait with those families, ROADMAP.md Queue A item 9.)
+slot ever reads it.
 """
 from __future__ import annotations
 
@@ -30,6 +36,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from repro_torch.optim.packing import pad_rows
 
 ALIGN = 256        # the reference's chunk quantum
 TRASH_ROW = 0      # reserved pool row for masked/inactive traffic
@@ -43,13 +51,13 @@ def _round_up(n: int, q: int) -> int:
 class PageGeom:
     """Static pool geometry for one (model config, engine config) pair."""
     page_size: int          # tokens per KV page
-    n_kv: int               # KV heads
+    n_kv: int               # KV heads (0 for ssm: no KV pages)
     head_dim: int
-    n_layers_kv: int        # layers that own KV tables
+    n_layers_kv: int        # layers that own KV tables (0 for ssm)
     max_blocks: int         # KV page-table length per layer per slot
-    state_size: int         # recurrent-state f32 elements per slot (0)
+    state_size: int         # packed recurrent-state f32 elements per slot
     page_elems: int         # pool row width (chunk-aligned)
-    state_rows: int         # pool rows per slot of recurrent state (0)
+    state_rows: int         # pool rows per slot of recurrent state
     n_pages: int            # total pool rows incl. the trash row
 
     @property
@@ -127,3 +135,19 @@ def write_prefill_kv(pool, rows, mat) -> None:
     n_kv * hd), token-major per page. Pages past the prompt length land
     on the slot's own rows; the decode kernel's length mask hides them."""
     pool[rows.long(), :mat.shape[-1]] = mat.to(pool.dtype)
+
+
+def read_state(pool, rows, size: int):
+    """Gather each slot's packed recurrent state: rows (B, state_rows) ->
+    (B, size) float32 (the last row's padding cut off)."""
+    return pool[rows.long()].reshape(rows.shape[0], -1)[:, :size]
+
+
+def write_state(pool, rows, buf, valid=None) -> None:
+    """Scatter each slot's packed state buffer back, in place: buf (B,
+    size) split into pool-row-wide tiles (``packing.pad_rows``). Invalid
+    slots write to the trash row."""
+    tiles = pad_rows(buf.to(pool.dtype), pool.shape[-1])         # (B, R, E)
+    if valid is not None:
+        rows = torch.where(valid[:, None], rows, TRASH_ROW)
+    pool.index_put_((rows.long(),), tiles)

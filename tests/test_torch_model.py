@@ -67,7 +67,8 @@ def test_unported_paths_raise():
     """attn_impl="pallas" runs its forward through the flash kernel's
     plain version (the same loss as the blocked path, rtol 1e-5); a
     gradient through it raises, since the kernel has no backward in
-    either package."""
+    either package. The vlm and audio architectures and families are
+    refused."""
     cfg = dataclasses.replace(get_config("paper-mlp").reduced(), **TINY,
                               attn_impl="pallas")
     model = build_model(cfg)
@@ -81,7 +82,9 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="flash_attention"):
         packing.value_and_flat_grad(model.loss, layout)(
             packing.pack(params, layout), batch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("qwen3-32b")
-    with pytest.raises(NotImplementedError, match="family"):
-        build_model(dataclasses.replace(cfg, family="ssm"))
+    for arch in ("internvl2-1b", "whisper-base"):
+        with pytest.raises(NotImplementedError, match="Queue A item 9b"):
+            get_config(arch)
+    for fam in ("vlm", "audio"):
+        with pytest.raises(NotImplementedError, match="family"):
+            build_model(dataclasses.replace(cfg, family=fam))

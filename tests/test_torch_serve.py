@@ -274,11 +274,10 @@ def test_backpressure_defers_then_completes(both):
 
 def test_refusals(both):
     _, _, _, tcfg, tmodel, tparams = both
-    for fam, match in (("ssm", "Queue A item 9"), ("hybrid", "Queue A item 9"),
-                       ("vlm", "modality"), ("audio", "modality")):
+    for fam in ("vlm", "audio"):
         model = dataclasses.replace(tmodel,
                                     cfg=dataclasses.replace(tcfg, family=fam))
-        with pytest.raises(NotImplementedError, match=match):
+        with pytest.raises(NotImplementedError, match="modality"):
             sdecode.geom_for(model, n_slots=1, page_size=4, max_len=8)
     geom = sdecode.geom_for(tmodel, n_slots=1, page_size=4, max_len=8)
     with pytest.raises(ValueError, match="unknown impl"):

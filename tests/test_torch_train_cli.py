@@ -189,7 +189,7 @@ def test_serve_cli_defaults_to_cuda_and_refuses_unported_archs():
     else:
         assert out.returncode != 0 and "CUDA" in out.stderr
         assert "requests" not in out.stdout
-    out = serve(["--device", "cpu", "--arch", "qwen3-32b"])
+    out = serve(["--device", "cpu", "--arch", "internvl2-1b"])
     assert out.returncode != 0 and "not ported yet" in out.stderr
 
 
