@@ -166,7 +166,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    (gsq rtol 1e-4, inner counts equal). Fig 4 on the pytree round
    (paper-mlp at full config, G 4, 4 sequences of 64 a group, sgd, 10
    rounds; T 1, 10, 50 and threshold 3e-2 with ``max_inner`` 100), its
-   ``pass`` expression required. Threshold mode at full width
+   ``pass`` expression required. The five convex figures and Fig 4 run
+   at once, each in a process of its own (``--figure <name>``): they are
+   host-bound (~20 small launches a local step), so the host issues them
+   in parallel; each figure's wall time is taken under that load. Threshold mode at full width
    (paper-lenet, G 4, 2 sequences of 128 a group, sgd, 2 rounds, eps
    ``LENET_EPS``): counts within the cap, a group that stopped early at
    grad_sq <= eps, two groups at different counts below the cap in round
@@ -267,13 +270,40 @@ Phases, in order; any failure raises and the script exits non-zero:
    steps under ``torch.profiler``. Last, the update kernels and the norm
    against their plain versions at each round's (G, N) buffer.
 
+14. the pytree round's exchange at full width (``TREE_PLAN``):
+   paper-lenet, seed 0, T 4, 2 x 128 tokens a group, 2 rounds a run, fault
+   seed 1, through ``build_run``, each exchange on the pytree round and
+   on the packed round from the same params and batches: server bf16
+   (sgd), ring fp16 at 2 hops, gossip bf16 over G 8 (momentum), a bf16
+   downlink, bf16 moments (adamw), async_stale s 1 (adamw, moments
+   averaged), the faulty server and ring at drop 0.1, push_sum at drop
+   0.1, and the tiers ring|push_sum over G 8 / 4 pods at DCN drop 0.075.
+   With the counts set to 0 before each run, the pytree runs must launch
+   no kernel (a tree stream takes the staged path, as the reference's
+   ``_fusable`` routes it) and the packed runs their update kernel T
+   times, ``sq_norm_groups`` twice and ``codec_mix`` once per fused
+   stream a round. Participation, round counters and wire bytes equal
+   every round, push-sum's ``|sum(mass) + sum(backlog_w) - G| <= 1e-3``
+   every round, and the params after 2 rounds: with a cast codec every
+   group's within one step of the codec at each leaf's magnitude (at
+   least 1e-6), else the server params within 1e-6, adamw's within 1e-5
+   on all but 1e-6 of the elements and every one within 0.25 lr (phase
+   4's rule: the two rounds' adamw formulas round v differently in the
+   last bit, which adamw carries into near-eps-gradient weights' steps). Each round's fenced time and the peak memory of both
+   rounds logged side by side. Then ``python -m
+   repro_torch.launch.train`` without ``--packed`` (paper-lenet,
+   ``--comm push_sum --drop-rate 0.1``, 2 rounds) must exit 0 and print
+   each round's participation.
+
 The line before the last is one JSON object with each kernel's numbers
 (the launches of phases 5 and 8 for the first eight, of phase 10's
 ``ops`` path for the last four; the update kernels and
 ``sq_norm_groups`` also carry phase 11's ``microbatch_launches`` and
 ``sync_launches``, and every kernel phase 12's full-width
 ``fault_launches``, and the kernels of phase 13's path its
-``family_launches``, each path's own count; ``paged_decode_attention``
+``family_launches``, and phase 14's ``tree_exchange_launches`` (the
+pytree runs: 0) and ``tree_exchange_packed_launches`` (their packed
+comparisons), each path's own count; ``paged_decode_attention``
 and ``mamba_chunk`` also carry ``device_ms``, the device's time alone at
 the shape of their ``ms``); the last line is ``{"ok": true, "device":
 {...}}``.
@@ -2286,7 +2316,8 @@ def fig67(torch, run_alg1, rounds_to, convex, np):
 
 
 def convex_suite(torch):
-    """Phase 11, part 1: the convex figures through run_alg1 on the card."""
+    """Phase 11, part 1: the convex figures through run_alg1 on the card,
+    and Fig 4 on the pytree round, each in a process of its own."""
     import numpy as np
 
     from repro_torch.core import theory
@@ -2302,17 +2333,91 @@ def convex_suite(torch):
     _profiled(torch, "convex: fig2b threshold, 5 rounds", lambda: run_alg1(
         prob.local_losses("cuda"), torch.zeros(FIG2B["d"]), lr=FIG2B["lr"],
         T=None, rounds=5, threshold=FIG2B["eps"], device="cuda"))
-    results = {
-        "2a": fig2a(torch, run_alg1, convex, np),
-        "2b": fig2b(torch, run_alg1, rounds_to, convex, np),
-        "3": fig3(torch, run_alg1, convex, synthetic, np),
-        "5": fig5(torch, run_alg1, rounds_to, convex, theory, np),
-        "6-7": fig67(torch, run_alg1, rounds_to, convex, np)}
-    log("convex suite wall s: " + ", ".join(
+    results = _run_figures()
+    log("convex suite wall s (the figures at once): " + ", ".join(
         f"fig{k} {s:.2f}" for k, (_, s) in results.items()))
     failed = [k for k, (ok, _) in results.items() if not ok]
     if failed:
         fail(f"convex suite: the pass expression of fig {failed} is false")
+
+
+# the figures phase 11 runs at once, one process each
+FIGURES = ("2a", "2b", "3", "5", "6-7", "4")
+
+
+def _figure(torch, name):
+    """One of FIGURES in this process: (pass, wall s)."""
+    import numpy as np
+
+    from repro_torch import kernels as K
+    from repro_torch.core import theory
+    from repro_torch.core.reference import rounds_to, run_alg1
+    from repro_torch.data import convex, synthetic
+    from repro_torch.kernels import (fused_adamw, fused_momentum,  # noqa: F401
+                                     fused_sgd, sq_norm)
+
+    if name == "2a":
+        return fig2a(torch, run_alg1, convex, np)
+    if name == "2b":
+        return fig2b(torch, run_alg1, rounds_to, convex, np)
+    if name == "3":
+        return fig3(torch, run_alg1, convex, synthetic, np)
+    if name == "5":
+        return fig5(torch, run_alg1, rounds_to, convex, theory, np)
+    if name == "6-7":
+        return fig67(torch, run_alg1, rounds_to, convex, np)
+    t0 = time.perf_counter()
+    fig4(torch, K)               # fails on its own pass expression
+    return True, time.perf_counter() - t0
+
+
+def figure_main(name) -> int:
+    """``chip_smoke.py --figure <name>``: one of FIGURES on the card; its
+    log, then ``{"figure", "pass", "s"}`` as the last line."""
+    import torch
+    if name not in FIGURES or not torch.cuda.is_available():
+        print(f"chip_smoke --figure: {name!r} needs CUDA and one of "
+              f"{FIGURES}", file=sys.stderr)
+        return 1
+    sys.path.insert(0, SRC)
+    ok, s = _figure(torch, name)
+    print(json.dumps({"figure": name, "pass": ok, "s": s}))
+    return 0
+
+
+def _run_figures():
+    """FIGURES at once, one process each (their output in temporary
+    files): {name: (pass, wall s)}. Fails if one fails; kills every
+    process still running when it stops."""
+    procs, outs = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fig_") as tmp:
+        try:
+            for name in FIGURES:
+                outs[name] = open(os.path.join(tmp, f"{name}.out"), "w+")
+                procs[name] = subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--figure",
+                     name], cwd=ROOT, stdout=outs[name],
+                    stderr=subprocess.STDOUT, text=True)
+            results = {}
+            for name, p in procs.items():
+                p.wait(timeout=1000)
+                outs[name].seek(0)
+                lines = outs[name].read().splitlines()
+                for line in lines[:-1]:
+                    log(line)
+                if p.returncode != 0 or not lines:
+                    fail(f"fig {name} exited {p.returncode}: "
+                         + "\n".join(lines[-20:]))
+                res = json.loads(lines[-1])
+                results[name] = (res["pass"], res["s"])
+            return results
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in outs.values():
+                f.close()
 
 
 def fig4(torch, K):
@@ -2692,8 +2797,7 @@ def phase11(torch, K):
         log(f"phase 11 {name}: {time.perf_counter() - t:.1f} s")
         return out
 
-    part("convex suite", lambda: convex_suite(torch))
-    part("fig 4", lambda: fig4(torch, K))
+    part("convex suite and fig 4", lambda: convex_suite(torch))
     part("threshold at full width", lambda: lenet_threshold(torch, K))
     part("pytree vs packed", lambda: pytree_vs_packed(torch))
     micro = part("microbatch round", lambda: microbatch_round(torch, K))
@@ -3734,6 +3838,217 @@ def phase13(torch, K):
     return {"family_launches": counts}, errs
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the pytree round's exchange at full width
+# ---------------------------------------------------------------------------
+# phase 14's runs (paper-lenet, seed 0, T 4, 2 x 128 tokens a group, 2
+# rounds each, fault seed 1, through build_run): each exchange on the
+# pytree round and on the packed round, from the same params and batches.
+# "codec_mix": the packed round's fused streams a round (a width codec on
+# server, ring or gossip over a reliable network); the pytree round fuses
+# none, as the reference's does not
+TREE_PLAN = [
+    dict(opt="sgd", lr=0.05, comm="server", codec="bf16", codec_mix=1),
+    dict(opt="sgd", lr=0.05, comm="ring", codec="fp16", mix_rounds=2,
+         codec_mix=1),
+    dict(opt="momentum", lr=0.05, groups=8, comm="gossip", codec="bf16",
+         codec_mix=1),
+    dict(opt="sgd", lr=0.05, comm="server", downlink_codec="bf16"),
+    dict(opt="adamw", lr=1e-3, comm="server", moment_codec="bf16",
+         codec_mix=2),
+    dict(opt="adamw", lr=1e-3, comm="async_stale", staleness=1),
+    dict(opt="sgd", lr=0.05, comm="server", drop_rate=0.1),
+    dict(opt="sgd", lr=0.05, comm="ring", drop_rate=0.1),
+    dict(opt="sgd", lr=0.05, comm="push_sum", drop_rate=0.1),
+    dict(opt="sgd", lr=0.05, groups=8, comm="hierarchical", n_pods=4,
+         drop_rate=0.075),
+]
+TREE_FLAGS = ("comm", "codec", "moment_codec", "downlink_codec",
+              "mix_rounds", "staleness", "drop_rate", "n_pods")
+TREE_ARCH = "paper-lenet"
+# one step of each cast codec relative to the values it casts
+CODEC_STEP = {"fp16": 2.0 ** -10, "bf16": 2.0 ** -7}
+
+
+def _tree_exchange_run(torch, K, run, packed):
+    """One TREE_PLAN run on the pytree (or packed) round, 2 rounds: the
+    final state, each round's (participation, round counter, wire bytes,
+    fenced s), the launches over the run and the peak memory (GiB).
+    push-sum's mass is held every round."""
+    from repro_torch.data.synthetic import TokenPipeline
+    from repro_torch.launch.train import build_run
+
+    G = run.get("groups", 4)
+    flags = {k: run[k] for k in TREE_FLAGS if k in run}
+    mode = "packed" if packed else "pytree"
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, _, layout, rnd, state, _, _, ex = build_run(
+        TREE_ARCH, groups=G, t_inner=4, opt=run["opt"], lr=run["lr"],
+        packed=packed, seed=0, device="cuda", fault_seed=1, **flags)
+    tokens = next(TokenPipeline(cfg.vocab_size, 128, seed=0).batches(
+        (G, 2)))["tokens"]
+    batch = {"tokens": torch.as_tensor(tokens, device="cuda")}
+    before = _all_counts(K)
+    rounds = []
+    for n in range(2):
+        (state, m), sec = _timed(torch, lambda: rnd(state, batch))
+        cst = state.get("comm", {})
+        if "mass" in cst:
+            mass = float(cst["mass"].sum() + cst["backlog_w"].sum())
+            if abs(mass - G) > 1e-3:
+                fail(f"tree exchange {ex.name} ({mode}) round {n}: "
+                     f"sum(mass) + sum(backlog_w) = {mass!r}, not {G} "
+                     "within 1e-3")
+        if not bool(torch.isfinite(m["loss"]).all()):
+            fail(f"tree exchange {ex.name} ({mode}) round {n}: loss "
+                 f"{m['loss'].tolist()}")
+        rounds.append((float(m["participation"]),
+                       int(cst["round"]) if "round" in cst else None,
+                       int(m["wire_bytes"]), sec))
+    got = {k: v - before[k] for k, v in _all_counts(K).items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del rnd
+    return state, rounds, got, peak, ex, layout
+
+
+def tree_exchange_path(torch, K):
+    """Phase 14, part 1: each TREE_PLAN exchange on the pytree round
+    against the packed round at full width. Holds: the pytree runs launch
+    no kernel; the packed runs launch their update kernel T times, the
+    norm twice and codec_mix once per fused stream a round; participation,
+    round counters and wire bytes equal every round; with a cast codec
+    the params of every group within one step of the codec at each leaf's
+    magnitude (at least 1e-6), else the server params within 1e-6; adamw's
+    server params within 1e-5 on all but 1e-6 of the elements, every one
+    within 0.25 lr. Returns the pytree runs' and the packed runs'
+    launches."""
+    from repro_torch import tree
+
+    tree_total = dict.fromkeys(_all_counts(K), 0)
+    packed_total = dict(tree_total)
+    for run in TREE_PLAN:
+        opt, G = run["opt"], run.get("groups", 4)
+        tst, trounds, tgot, tpeak, ex, _ = _tree_exchange_run(
+            torch, K, run, packed=False)
+        if any(tgot.values()):
+            fail(f"tree exchange {ex.name}: the pytree round launched "
+                 f"{ {k: v for k, v in tgot.items() if v} }")
+        tparams = tst["params"]
+        topt = {k: v for k, v in tst["opt"].items() if k != "count"}
+        del tst
+        pst, prounds, pgot, ppeak, _, layout = _tree_exchange_run(
+            torch, K, run, packed=True)
+        want = dict.fromkeys(pgot, 0)
+        want[f"fused_{opt}"] = 4 * 2
+        want["sq_norm_groups"] = 2 * 2
+        want["codec_mix"] = run.get("codec_mix", 0) * 2
+        if pgot != want:
+            fail(f"tree exchange {ex.name}: the packed round launched "
+                 f"{pgot}, expected {want}")
+        for k in tree_total:
+            tree_total[k] += tgot[k]
+            packed_total[k] += pgot[k]
+        for n, (t, p) in enumerate(zip(trounds, prounds)):
+            if t[:3] != p[:3]:
+                fail(f"tree exchange {ex.name} round {n}: pytree "
+                     f"(participation, round, wire) {t[:3]} != packed "
+                     f"{p[:3]}")
+        cast = next((CODEC_STEP[run[k]] for k in ("codec", "moment_codec",
+                                                  "downlink_codec")
+                     if run.get(k) in CODEC_STEP), None)
+        # fp32 streams: phase 11's bar on the server params. adamw: the
+        # reference's pytree adamw squares g before scaling it, (1 - b2)
+        # * square(g), its kernel scales first, (1 - b2) * g * g, so v
+        # differs in the last bit between the two rounds, and adamw
+        # carries that into the steps of weights whose |g| is near eps at
+        # a fraction of lr each step (phase 4's rule; PERF.md §6, PR 22):
+        # its server params within 1e-5 on all but 1e-6 of the elements,
+        # every one within 0.25 lr. A cast codec: one step at each leaf's
+        # magnitude, every group
+        srv_bar = (1e-5 if opt == "adamw" else
+                   1e-6 if cast is None else None)
+        off_bar = 0.25 * run["lr"] if opt == "adamw" else srv_bar
+        row_err = srv_err = worst = 0.0
+        n_off = 0
+        mom_err = dict.fromkeys(topt, 0.0)
+        for i, leaf in enumerate(tree.leaves(tparams)):
+            sl = slice(layout.offsets[i], layout.offsets[i] + layout.sizes[i])
+            a, b = leaf.reshape(G, -1), pst["params"][:, sl]
+            err = float((a - b).abs().max())
+            row_err = max(row_err, err)
+            d = (a.mean(0) - b.mean(0)).abs()
+            srv_err = max(srv_err, float(d.max()))
+            if srv_bar is not None:
+                n_off += int((d > srv_bar).sum())
+            del d
+            if cast is not None:
+                bar = max(cast * float(b.abs().max()), 1e-6)
+                worst = max(worst, err / bar)
+            for k, v in topt.items():
+                mom_err[k] = max(mom_err[k], float(
+                    (tree.leaves(v)[i].reshape(G, -1)
+                     - pst["opt"][k][:, sl]).abs().max()))
+        log(f"tree exchange {ex.name} {opt} G {G}: fenced s a round pytree "
+            + ", ".join(f"{r[3]:.4f}" for r in trounds) + " / packed "
+            + ", ".join(f"{r[3]:.4f}" for r in prounds)
+            + f"; peak {tpeak:.2f} / {ppeak:.2f} GiB; participation "
+            f"{[r[0] for r in trounds]}, wire {trounds[0][2]:,} B; params "
+            f"max abs diff every group {row_err:.3e}"
+            + (f" ({worst:.3f} of one codec step)" if cast else "")
+            + f", server {srv_err:.3e} ({n_off} past {srv_bar}); moments "
+            + ", ".join(f"{k} {v:.3e}" for k, v in mom_err.items()))
+        n_ok = layout.size * 1e-6 if opt == "adamw" else 0
+        if srv_bar is not None and (srv_err > off_bar or n_off > n_ok):
+            fail(f"tree exchange {ex.name}: server params differ from the "
+                 f"packed round's by up to {srv_err:.3e}, {n_off} past "
+                 f"{srv_bar:g} (bars: {off_bar:g}, {n_ok:g} elements)")
+        if worst > 1.0:
+            fail(f"tree exchange {ex.name}: params differ from the packed "
+                 f"round's by {worst:.3f} codec steps at their magnitude")
+        del tparams, topt, pst
+    log(f"tree exchange launches: pytree {tree_total}, packed "
+        f"{packed_total}")
+    return tree_total, packed_total
+
+
+def tree_launcher_run(torch):
+    """Phase 14, part 2: the train launcher without --packed on the card
+    (paper-lenet, push_sum at drop 0.1, 2 rounds): exit 0, two round
+    lines with their participation, the pytree round."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           TREE_ARCH, "--rounds", "2", "--comm", "push_sum", "--drop-rate",
+           "0.1"]
+    out = subprocess.run(cmd, cwd=ROOT, env=dict(os.environ, PYTHONPATH=SRC),
+                         capture_output=True, text=True, timeout=300)
+    for line in out.stdout.splitlines():
+        log(f"launcher pytree push_sum: {line}")
+    if out.returncode != 0:
+        fail(f"launcher {cmd[3:]} exited {out.returncode}: "
+             f"{out.stderr[-2000:]}")
+    rounds = [l for l in out.stdout.splitlines() if l.startswith("round ")]
+    if len(rounds) != 2 or not all(" part " in l for l in rounds) or (
+            "mode=localsgd pytree" not in out.stdout):
+        fail(f"launcher pytree push_sum: round lines {rounds}")
+
+
+def phase14(torch, K):
+    """Phase 14: the pytree round's exchange at full width. Returns the
+    pytree runs' launches (``tree_exchange_launches``, all 0) and the
+    packed comparison runs' (``tree_exchange_packed_launches``)."""
+    t0 = time.perf_counter()
+    _zero_all_counts(K)
+    tree_counts, packed_counts = tree_exchange_path(torch, K)
+    log(f"phase 14 pytree vs packed: {time.perf_counter() - t0:.1f} s")
+    t = time.perf_counter()
+    tree_launcher_run(torch)
+    log(f"phase 14 launcher: {time.perf_counter() - t:.1f} s")
+    log(f"phase 14: {time.perf_counter() - t0:.1f} s")
+    return {"tree_exchange_launches": tree_counts,
+            "tree_exchange_packed_launches": packed_counts}
+
+
 def _kernel_name(mangled):
     """A ptxas entry name, short: the kernel's name after its namespace
     and its raw template arguments (``paged_decode_kernel ILi64ELi1EE``:
@@ -3751,6 +4066,8 @@ def _kernel_name(mangled):
 
 
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--figure":
+        return figure_main(sys.argv[2])
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3827,6 +4144,7 @@ def main() -> int:
     by_path = phase11(torch, K)
     by_path.update(phase12(torch, K))
     by_path.update(phase13(torch, K)[0])
+    by_path.update(phase14(torch, K))
 
     # again at the end, where a tail of the output still holds them
     log(built)

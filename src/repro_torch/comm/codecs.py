@@ -9,7 +9,9 @@ arithmetic for it.
 
 Contract, as in the reference:
   * ``compress(delta, state) -> (delta_hat, state)``: quantize and
-    decode in one step (the simulated wire), on a (G, N) buffer.
+    decode in one step (the simulated wire), on a (G, N) buffer; the
+    cast codecs (fp16, bf16) take a tree of (G, ...) leaves as well,
+    leaf by leaf, as the reference's ``jax.tree.map`` does.
   * ``state`` carries a codec's memory from round to round in the train
     state (``state["comm"]["codec"][stream]``): int8's noise counter,
     top-k's error-feedback residual; ``{}`` for stateless codecs.
@@ -37,6 +39,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch import tree
 from repro_torch.kernels.exchange_epilogue import qdq_int8
 from repro_torch.optim import packing
 
@@ -73,7 +76,7 @@ def fp32() -> Codec:
 
 def _cast_codec(name: str, dtype, impl: str) -> Codec:
     def compress(delta, state):
-        return delta.to(dtype).to(delta.dtype), state
+        return tree.tree_map(lambda d: d.to(dtype).to(d.dtype), delta), state
 
     # impl reaches the fused exchange's codec_mix
     return Codec(name, compress, lambda n: 2 * n, _no_state, impl=impl)

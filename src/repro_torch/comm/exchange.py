@@ -48,10 +48,10 @@ encodes this round's result for the next (``encode_streams``).
 
 Routing, as in the reference (``_fusable``): int8, fp16 and bf16 on
 server, ring and gossip, and top-k on server, run the fused ``codec_mix``
-kernel (``kernels/exchange_epilogue.py``) on a reliable network; under a
-fault plan, and on async_stale, push_sum, the tiers and the overlap
-encode, every stream takes the staged codecs (int8's core is the
-``qdq_int8`` kernel).
+kernel (``kernels/exchange_epilogue.py``) on a (G, N) buffer over a
+reliable network; under a fault plan, and on async_stale, push_sum, the
+tiers and the overlap encode, every stream takes the staged codecs
+(int8's core is the ``qdq_int8`` kernel).
 
 The exchange works in place where it can: an fp32 stream and a fused
 stream are mixed into the live (G, N) buffer, whose memory the round
@@ -59,14 +59,17 @@ owns, and push-sum's value backlogs are updated in place. What must
 outlive the round (a staleness buffer, an in-flight payload, a backlog)
 is never a view of a live buffer.
 
-The pytree round's streams are trees with a leading G axis: ``mix_tree``
-mixes them leaf by leaf (each leaf viewed as (G, -1)) through the fp32
-wire on server, ring, gossip and none, as the reference's staged path
-does. ``check_tree`` refuses the rest: int8, int8z and top-k need the
-flat buffer (the reference refuses them too), overlap needs it as well,
-and the tree path's fp16/bf16 codecs, lossy downlink, async_stale,
-push_sum, the tiers and fault plans are not ported yet (ROADMAP.md Queue
-A item 1b).
+A stream's value is a (G, N) buffer (the packed round) or a tree of
+(G, ...) tensors (the pytree round). A tree runs the staged path leaf by
+leaf, each leaf as its (G, -1) view (``_each_leaf``), as the
+reference's ``jax.tree.map`` runs it; it never reaches a kernel (the
+reference's ``_fusable`` takes only a 2-D buffer). The host-side masks,
+weights and counters are made once a round (once a hop for the hop
+masks) and shared by every stream and leaf. A tree stream's push-sum
+backlog is updated in a copy: the pytree round leaves its caller's
+state as it was. ``check_tree`` refuses what the reference refuses
+there: overlap, and the flat-only codecs (int8, int8z, top-k), whose
+wire format is the packed buffer.
 """
 from __future__ import annotations
 
@@ -89,10 +92,6 @@ TOPOLOGIES = ("server", "ring", "gossip", "async_stale", "push_sum",
 INTRA_TOPOLOGIES = ("ring", "server")        # pod-internal tier
 INTER_TOPOLOGIES = ("push_sum", "server")    # cross-pod tier
 
-_TREE_NOT_PORTED = ("not ported yet on the pytree round (ROADMAP.md Queue A "
-                    "item 1b: the pytree round's lossy codecs, async_stale, "
-                    "push_sum, tiers and faults); run it with a packed "
-                    "layout")
 # codecs whose wire format is the packed (G, N) buffer (the reference's
 # flat_only codecs)
 _FLAT_ONLY = ("int8", "int8z", "topk")
@@ -121,6 +120,39 @@ def _f32(x) -> torch.Tensor:
 def _mask_mean(m: np.ndarray) -> np.float32:
     """The float32 mean of a 0/1 mask: its (exact) sum over its size."""
     return np.float32(m.sum(dtype=np.float32)) / np.float32(m.size)
+
+
+def _each_leaf(fn, x, *rest):
+    """``fn`` over one stream's value: a (G, N) buffer as it is, or each
+    leaf of a tree of (G, ...) tensors as its (G, -1) view, beside the
+    matching leaf of every tree in ``rest`` viewed alike (its own leading
+    axes kept: a backlog's offset axis). Each result takes its leaf's
+    shape; a write into a view lands in its leaf."""
+    if isinstance(x, torch.Tensor) and x.dim() == 2:
+        return fn(x, *rest)
+
+    def leaf(a, *bs):
+        def view(b):
+            return b.view(tuple(b.shape[:b.dim() - a.dim()])
+                          + (a.shape[0], -1))
+
+        return fn(view(a), *map(view, bs)).view(a.shape)
+
+    return tree.tree_map(leaf, x, *rest)
+
+
+def _device(x):
+    """The device of a stream's value (a buffer or a tree)."""
+    return tree.leaves(x)[0].device
+
+
+def _own_backlog(bl):
+    """The push-sum backlog a round updates in place: the packed round's
+    own buffer, or a copy of a tree stream's (the pytree round leaves its
+    caller's state as it was, as the reference's functional round
+    does)."""
+    return bl if isinstance(bl, torch.Tensor) else tree.tree_map(
+        torch.clone, bl)
 
 
 def _col(m: np.ndarray, device) -> torch.Tensor:
@@ -334,11 +366,12 @@ class Exchange:
     # -- state ------------------------------------------------------------
 
     def init(self, params_G, moments: Optional[dict] = None) -> dict:
-        """Comm state for the (G, N) params buffer and the moment streams
-        ``{name: (G, N)}`` ({} when the exchange is stateless). Staleness
-        buffers, in-flight payloads and downlink references are copies,
-        never views of the live buffers (which the round updates in
-        place)."""
+        """Comm state for the params stream and the moment streams
+        ``{name: value}`` ({} when the exchange is stateless), each a (G,
+        N) buffer or a tree of (G, ...) leaves; the state has the
+        reference's structure, leaf for leaf. Staleness buffers, in-flight
+        payloads and downlink references are copies, never views of the
+        live buffers (which the round updates in place)."""
         state: dict = {}
         if not self.stateful:
             return state
@@ -360,9 +393,9 @@ class Exchange:
                                               and self.faulty):
             # the faulty server keeps async_stale's staleness buffers: a
             # group whose push drops contributes its last delivered one
-            state["pushed"] = params_G.clone()
+            state["pushed"] = tree.tree_map(torch.clone, params_G)
             if moments:
-                state["pushed_opt"] = {k: v.clone()
+                state["pushed_opt"] = {k: tree.tree_map(torch.clone, v)
                                        for k, v in moments.items()}
         if self.topology == "async_stale":
             state["round"] = torch.zeros((), dtype=torch.int32)
@@ -397,8 +430,9 @@ class Exchange:
             # the last decoded broadcast, shared by every group: starts at
             # the G-mean (equal to the params when they start replicated)
             def dinit(v):
-                return {"ref": v.mean(dim=0, keepdim=True).expand_as(v)
-                        + 0.0,
+                return {"ref": tree.tree_map(
+                            lambda a: a.mean(dim=0, keepdim=True).expand_as(
+                                a) + 0.0, v),
                         "state": self.downlink_codec.init(v)}
 
             state["down"] = {k: dinit(v) for k, v in vals.items()}
@@ -406,13 +440,16 @@ class Exchange:
 
     def _init_push_sum(self, state, vals, offs) -> None:
         """Mass counters (host) and per-edge value backlogs (beside the
-        streams). Invariant: sum(mass) + sum(backlog_w) == G to float32
-        precision, every round."""
+        streams; per leaf of a tree stream, with a leading offset axis).
+        Invariant: sum(mass) + sum(backlog_w) == G to float32 precision,
+        every round."""
+        def zeros(a):
+            return torch.zeros((len(offs),) + tuple(a.shape),
+                               dtype=torch.float32, device=a.device)
+
         state["mass"] = torch.ones((self.n_groups,), dtype=torch.float32)
-        state["backlog"] = {
-            k: torch.zeros((len(offs),) + tuple(v.shape),
-                           dtype=torch.float32, device=v.device)
-            for k, v in vals.items()}
+        state["backlog"] = {k: tree.tree_map(zeros, v)
+                            for k, v in vals.items()}
         state["backlog_w"] = torch.zeros((len(offs), self.n_groups),
                                          dtype=torch.float32)
 
@@ -434,11 +471,33 @@ class Exchange:
             y = _tensordot_w(w, y)
         return out.copy_(y)
 
+    def _mix_into(self, v, out):
+        """``mix`` of a stream's value into ``out`` (its live buffer or
+        tree, which may be ``v`` itself), leaf by leaf. Returns the mixed
+        value."""
+        if v is out:
+            return _each_leaf(lambda a: self.mix(a, out=a), v)
+        return _each_leaf(lambda a, o: self.mix(a, out=o), v, out)
+
     def check_tree(self, average_opt_state: bool = True) -> None:
-        """Refuse an exchange the pytree round cannot run: overlap or a
-        flat-only codec (as the reference does), or what ROADMAP.md Queue
-        A item 1b will port (a lossy tree codec or downlink, async_stale,
-        push_sum, the tiers, a fault plan)."""
+        """Refuse what the pytree round cannot run, as the reference
+        does: a flat-only codec (int8, int8z, top-k) on a stream that goes
+        on the wire, and overlap."""
+        if self.topology != "none":
+            # ("none" is exempt: nothing goes on the wire, the codecs
+            # never run)
+            used = [("params", self.codec)]
+            if average_opt_state:
+                used.append(("moment", self.mcodec))
+            if self.downlink_codec is not None:
+                used.append(("downlink", self.downlink_codec))
+            for what, codec in used:
+                if codec.name in _FLAT_ONLY:
+                    raise NotImplementedError(
+                        f"{what} codec {codec.name!r} needs the packed (G, "
+                        "N) buffer as its wire format — run the round with "
+                        "a packing.Layout and a packed optimizer (DESIGN.md "
+                        "§8)")
         if self.overlap:
             raise NotImplementedError(
                 "the overlapped (delayed-mixing) exchange double-buffers "
@@ -446,39 +505,6 @@ class Exchange:
                 "the round with a packing.Layout and a packed optimizer "
                 "(DESIGN.md §14); the pytree path has no single "
                 "donation-safe buffer to put in flight")
-        if self.topology == "none":
-            return           # nothing on the wire: the codecs never run
-        used = [("params", self.codec)]
-        if average_opt_state:
-            used.append(("moment", self.mcodec))
-        if self.downlink_codec is not None:
-            used.append(("downlink", self.downlink_codec))
-        for what, codec in used:
-            if codec.name in _FLAT_ONLY:
-                raise NotImplementedError(
-                    f"{what} codec {codec.name!r} needs the packed (G, N) "
-                    "buffer as its wire format — run the round with a "
-                    "packing.Layout and a packed optimizer (DESIGN.md §8)")
-            if not codec.identity:
-                raise NotImplementedError(
-                    f"{what} codec {codec.name!r} is {_TREE_NOT_PORTED}")
-        if self.topology in ("async_stale", "push_sum", "hierarchical"):
-            raise NotImplementedError(
-                f"topology {self.topology!r} is {_TREE_NOT_PORTED}")
-        if self.faulty:
-            raise NotImplementedError(
-                f"fault injection ({self.name}) is {_TREE_NOT_PORTED}")
-
-    def mix_tree(self, tree_G):
-        """Codec-free mixing of a tree whose leaves carry a leading G
-        axis, leaf by leaf, in place (each leaf mixed as its (G, -1)
-        view). Returns the tree."""
-        def leaf(x):
-            x2 = x.view(self.n_groups, -1)
-            self.mix(x2, out=x2)
-            return x
-
-        return tree.tree_map(leaf, tree_G)
 
     def _masked_hop(self, v, wm, deficit, act):
         """One masked W hop: a receiver substitutes its own value for
@@ -494,16 +520,23 @@ class Exchange:
             device=device)
         return wm, 1.0 - wm.sum(dim=1)
 
-    def _mix_faulty(self, x, rnd: int, out):
-        """ring/gossip under a FaultPlan, written into ``out``.
-        Self-substitution keeps the masked matrix row-stochastic but its
-        columns no longer sum to 1, so the G-mean drifts (DESIGN.md
-        §12)."""
-        act = _col(self.fault_plan.active_mask(rnd, self.n_groups),
-                   x.device)
+    def _fault_hops(self, rnd: int, device):
+        """A faulty ring/gossip round's masks: the (G, 1) liveness column
+        and each hop's ``_hop_masks``, made once a round and shared by
+        every stream and leaf (one physical transmission carries them
+        all). Returns ``(act, hops)``."""
+        act = _col(self.fault_plan.active_mask(rnd, self.n_groups), device)
+        return act, [self._hop_masks(rnd, h, device)
+                     for h in range(self.mix_rounds)]
+
+    def _mix_faulty(self, x, act, hops, out):
+        """ring/gossip under a FaultPlan, written into ``out``, the hops
+        masked by ``_fault_hops``. Self-substitution keeps the masked
+        matrix row-stochastic but its columns no longer sum to 1, so the
+        G-mean drifts (DESIGN.md §12)."""
         y = x
-        for h in range(self.mix_rounds):
-            y = self._masked_hop(y, *self._hop_masks(rnd, h, x.device), act)
+        for wm, deficit in hops:
+            y = self._masked_hop(y, wm, deficit, act)
         return out.copy_(y)
 
     def _edge_participation(self, rnd: int) -> torch.Tensor:
@@ -521,34 +554,38 @@ class Exchange:
 
     # -- the communication step -------------------------------------------
 
-    def _decentral_lossy(self, x_G, x0_G, cstate, codec, rnd=None):
+    def _decentral_lossy(self, x_G, x0_G, cstate, codec, faults=None):
         """ring/gossip with a staged lossy codec: every hop encodes the
         delta against the last transmitted (decoded) value (hop 0 against
-        the round start) and mixes the decoded payload; with ``rnd`` (an
-        active FaultPlan) each hop is masked as the identity streams'
-        hops are. Returns (mixed, codec_state)."""
-        dev = x_G.device
-        act = (None if rnd is None else
-               _col(self.fault_plan.active_mask(rnd, self.n_groups), dev))
-        w = self._w_on(dev)
+        the round start) and mixes the decoded payload; with ``faults``
+        (the round's ``_fault_hops``) each hop is masked as the identity
+        streams' hops are. Returns (mixed, codec_state)."""
+        w = self._w_on(_device(x_G)) if faults is None else None
         y, ref = x_G, x0_G
         for h in range(self.mix_rounds):
-            delta_hat, cstate = codec.compress(y - ref, cstate)
-            ref = ref + delta_hat
+            delta_hat, cstate = codec.compress(
+                tree.tree_map(torch.sub, y, ref), cstate)
+            ref = tree.tree_map(torch.add, ref, delta_hat)
             del delta_hat
-            if rnd is None:
-                y = _tensordot_w(w, ref)
+            if faults is None:
+                y = _each_leaf(lambda v: _tensordot_w(w, v), ref)
             else:
-                y = self._masked_hop(ref, *self._hop_masks(rnd, h, dev), act)
+                act, hops = faults
+                y = _each_leaf(
+                    lambda v: self._masked_hop(v, *hops[h], act), ref)
         return y, cstate
 
-    def _fusable(self, codec) -> bool:
-        """Streams the fused codec_mix epilogue covers: a width codec on
-        server, ring or gossip, or top-k on server (ring/gossip re-select
-        per hop and stay staged). async keeps the staged path (the
-        staleness mask interleaves), and so does every stream under an
-        active fault plan (the masks interleave with the mixing)."""
+    def _fusable(self, codec, x) -> bool:
+        """Streams the fused codec_mix epilogue covers: a (G, N) buffer
+        through a width codec on server, ring or gossip, or top-k on
+        server (ring/gossip re-select per hop and stay staged). async
+        keeps the staged path (the staleness mask interleaves), and so
+        does every stream under an active fault plan (the masks
+        interleave with the mixing); a tree stream has no flat wire
+        format."""
         if self.faulty or not self.fused:
+            return False
+        if not (isinstance(x, torch.Tensor) and x.dim() == 2):
             return False
         if codec.topk_frac > 0:
             return self.topology == "server"
@@ -589,10 +626,11 @@ class Exchange:
 
     def streams(self, xs: dict, xs0: dict, comm_state: dict):
         """One exchange of the round's multi-stream payload. ``xs`` maps a
-        stream name to its (G, N) value after the local steps; ``xs0``
-        holds the round-start value of every lossy stream. Returns
-        ``(mixed: {name: (G, N)}, new_comm_state)``; a mixed value may be
-        the ``xs`` buffer itself, updated in place."""
+        stream name to its value after the local steps, a (G, N) buffer
+        or a tree of (G, ...) tensors; ``xs0`` holds the round-start value
+        of every lossy stream. Returns ``(mixed: {name: value},
+        new_comm_state)``; a mixed value may be the ``xs`` buffer itself,
+        updated in place."""
         if (isinstance(self.fault_plan, faults_mod.TieredFaultPlan)
                 and not self.hierarchical):
             raise NotImplementedError(
@@ -607,6 +645,10 @@ class Exchange:
             return self._push_sum_streams(xs, comm_state)
         plan = self.fault_plan if self.topology != "none" else None
         rnd = None if plan is None else int(comm_state["round"])
+        dev = _device(xs["params"])
+        # faulty ring/gossip: the round's hop masks, shared by every stream
+        faults = (self._fault_hops(rnd, dev)
+                  if plan is not None and self.w is not None else None)
         new_state = dict(comm_state)
         cstates = dict(comm_state.get("codec", {}))
         touched = False
@@ -617,28 +659,30 @@ class Exchange:
                 # "none" skips the codec too: nothing goes on the wire
                 x_hat[name] = x
                 continue
-            if self._fusable(codec):
+            if self._fusable(codec, x):
                 mixed[name], cs = self._fused_stream(
                     codec, x, xs0[name], cstates.get(name, {}))
             elif self.w is not None:
                 # decentralized + lossy: the codec runs per mixing hop
                 mixed[name], cs = self._decentral_lossy(
-                    x, xs0[name], cstates.get(name, {}), codec, rnd=rnd)
+                    x, xs0[name], cstates.get(name, {}), codec, faults)
             else:
-                d_hat, cs = codec.compress(x - xs0[name],
-                                           cstates.get(name, {}))
-                x_hat[name] = xs0[name] + d_hat
+                d_hat, cs = codec.compress(
+                    tree.tree_map(torch.sub, x, xs0[name]),
+                    cstates.get(name, {}))
+                x_hat[name] = tree.tree_map(torch.add, xs0[name], d_hat)
                 if plan is not None and "residual" in cs:
                     d_hats[name] = d_hat      # deferred if the push drops
                 del d_hat
             if codec.stateful:
                 cstates[name] = cs
                 touched = True
-        if plan is not None and self.w is not None:
+        if faults is not None:
             # faulty ring/gossip: masked hops for the identity streams
             # (the lossy ones were masked per hop above)
-            mixed.update({k: self._mix_faulty(v, rnd, out=xs[k])
-                          for k, v in x_hat.items()})
+            mixed.update({k: _each_leaf(
+                lambda a, o: self._mix_faulty(a, *faults, out=o), v, xs[k])
+                for k, v in x_hat.items()})
             if touched:
                 new_state["codec"] = cstates
             new_state["round"] = comm_state["round"] + 1
@@ -647,13 +691,14 @@ class Exchange:
         if self.topology != "async_stale" and plan is None:
             if touched:
                 new_state["codec"] = cstates
-            mixed.update({k: self.mix(v, out=xs[k])
+            mixed.update({k: self._mix_into(v, xs[k])
                           for k, v in x_hat.items()})
             return self._apply_downlink(mixed, comm_state, new_state)
         # bounded staleness: refresh the groups whose push arrived this
         # round (async_stale's schedule; everyone on the faulty server),
         # average every group's last delivered push, per stream; a
-        # dropped push is sent again from the same buffer
+        # dropped push is sent again from the same buffer. The schedule
+        # reads the round counter before its increment
         rnd = int(comm_state["round"])
         G = self.n_groups
         if self.topology == "async_stale":
@@ -680,16 +725,20 @@ class Exchange:
         del d_hats
         if touched:
             new_state["codec"] = cstates
-        fresh = torch.as_tensor(fresh[:, None], device=xs["params"].device)
-        pushed = torch.where(fresh, x_hat["params"], comm_state["pushed"])
+        fresh = torch.as_tensor(fresh[:, None], device=dev)
+
+        def refresh(x, pushed):
+            return torch.where(fresh, x, pushed)
+
+        pushed = _each_leaf(refresh, x_hat["params"], comm_state["pushed"])
         new_state["pushed"] = pushed
-        mixed["params"] = self.mix(pushed, out=xs["params"])
+        mixed["params"] = self._mix_into(pushed, xs["params"])
         mnames = [k for k in x_hat if k != "params"]
         if mnames:
             pushed_opt = dict(comm_state["pushed_opt"])
             for k in mnames:
-                pushed_opt[k] = torch.where(fresh, x_hat[k], pushed_opt[k])
-                mixed[k] = self.mix(pushed_opt[k], out=xs[k])
+                pushed_opt[k] = _each_leaf(refresh, x_hat[k], pushed_opt[k])
+                mixed[k] = self._mix_into(pushed_opt[k], xs[k])
             new_state["pushed_opt"] = pushed_opt
         new_state["round"] = comm_state["round"] + 1
         return self._apply_downlink(mixed, comm_state, new_state)
@@ -705,7 +754,8 @@ class Exchange:
         ratio stays an unbiased combination of the groups' models. A cast
         codec (fp16/bf16) quantizes the transmitted value; its residue
         stays queued. An absent node's mass freezes and drains on rejoin.
-        Each stream's mixed value is written into its ``xs`` buffer."""
+        Each stream's mixed value is written into its ``xs`` buffer. The
+        weight channel advances once a round, whatever the leaves."""
         G = self.n_groups
         offs = topo_mod.push_sum_offsets(G)
         for name in xs:
@@ -743,21 +793,25 @@ class Exchange:
         for h in range(self.mix_rounds):
             w, blw = _push_sum_weights(w, blw, a, act, offs, incs[h],
                                        masks[h])
-        dev = xs["params"].device
+        dev = _device(xs["params"])
         act_d = _col(act, dev)
         masks_d = [[_col(m, dev) for m in mh] for mh in masks]
         incs_d = [[_col(m, dev) for m in ih] for ih in incs]
         w0_d, w_d = _col(w0, dev), _col(w, dev)
-        backlog = dict(comm_state["backlog"])
+        backlog = {k: _own_backlog(v)
+                   for k, v in comm_state["backlog"].items()}
         mixed = {}
         for k, x in xs.items():
-            num = x.to(torch.float32) * w0_d
-            for h in range(self.mix_rounds):
-                num = _push_sum_hop(num, backlog[k], a, act_d, offs,
-                                    incs_d[h], masks_d[h],
-                                    self.stream_codec(k))
-            mixed[k] = torch.div(num, w_d, out=x)
-            del num
+            codec = self.stream_codec(k)
+
+            def ratio(v, bl):
+                num = v.to(torch.float32) * w0_d
+                for h in range(self.mix_rounds):
+                    num = _push_sum_hop(num, bl, a, act_d, offs, incs_d[h],
+                                        masks_d[h], codec)
+                return torch.div(num, w_d, out=v)
+
+            mixed[k] = _each_leaf(ratio, x, backlog[k])
         new_state["mass"] = torch.from_numpy(w)
         new_state["backlog"] = backlog
         new_state["backlog_w"] = torch.from_numpy(blw)
@@ -822,7 +876,7 @@ class Exchange:
         ip, xp = self.intra_plan, self.inter_plan
         rnd = int(comm_state["round"])
         new_state = dict(comm_state)
-        dev = xs["params"].device
+        dev = _device(xs["params"])
         ones = np.ones((G,), np.float32)
 
         def pod_take(x, d):
@@ -835,7 +889,8 @@ class Exchange:
         # ---- stage A: pod-internal tier ------------------------------
         act_i = ip.active_mask(rnd, G) if ip is not None else ones
         act_i_d = _col(act_i, dev)
-        ys = {k: x.to(torch.float32) for k, x in xs.items()}
+        ys = {k: tree.tree_map(lambda v: v.to(torch.float32), x)
+              for k, x in xs.items()}
         part_intra = np.float32(1.0)
         if s > 1 and self.intra_topology == "ring":
             w_self, offs_pod, w_edge = topo_mod.ring_circulant(s)
@@ -854,22 +909,26 @@ class Exchange:
                 masks_a.append([_col(m, dev) for m in mh])
             for k in list(ys):
                 codec = self.stream_codec(k)
-                v = ys[k]
-                for mh in masks_a:
-                    out = w_self * v
-                    for di, d in enumerate(offs_pod):
-                        t = pod_take(v, d)
-                        if not codec.identity:
-                            t = codec.compress(t, {})[0]
-                        # m*t + (1-m)*v with a 0/1 mask: the payload where
-                        # it arrived, the receiver's own value where lost
-                        t = torch.where(mh[di] > 0, t, v)
-                        t.mul_(w_edge)
-                        out.add_(t)
-                        del t
-                    v = torch.where(act_i_d > 0, out, v)
-                    del out
-                ys[k] = v
+
+                def ring(v):
+                    for mh in masks_a:
+                        out = w_self * v
+                        for di, d in enumerate(offs_pod):
+                            t = pod_take(v, d)
+                            if not codec.identity:
+                                t = codec.compress(t, {})[0]
+                            # m*t + (1-m)*v with a 0/1 mask: the payload
+                            # where it arrived, the receiver's own value
+                            # where lost
+                            t = torch.where(mh[di] > 0, t, v)
+                            t.mul_(w_edge)
+                            out.add_(t)
+                            del t
+                        v = torch.where(act_i_d > 0, out, v)
+                        del out
+                    return v
+
+                ys[k] = _each_leaf(ring, ys[k])
             if ip is not None and mask_n:
                 part_intra = mask_sum / np.float32(mask_n)
         elif s > 1:                                # intra "server"
@@ -884,13 +943,16 @@ class Exchange:
             recv_d = torch.as_tensor(recv[:, :, None], device=dev)
             for k in list(ys):
                 codec = self.stream_codec(k)
-                v = ys[k]
-                r = v.reshape((n_pods, s) + tuple(v.shape[1:]))
-                t = r if codec.identity else codec.compress(r, {})[0]
-                m = (dv_d * t).sum(dim=1, keepdim=True) / den_d
-                del t
-                ys[k] = torch.where(recv_d, m.expand_as(r), r).reshape(
-                    v.shape)
+
+                def pod_mean(v):
+                    r = v.reshape((n_pods, s) + tuple(v.shape[1:]))
+                    t = r if codec.identity else codec.compress(r, {})[0]
+                    m = (dv_d * t).sum(dim=1, keepdim=True) / den_d
+                    del t
+                    return torch.where(recv_d, m.expand_as(r), r).reshape(
+                        v.shape)
+
+                ys[k] = _each_leaf(pod_mean, ys[k])
             if ip is not None:
                 part_intra = _mask_mean(deliv)
 
@@ -922,14 +984,17 @@ class Exchange:
             masks_d = [_col(m, dev) for m in masks]
             incs_d = [_col(m, dev) for m in incs]
             w0_d, w_d = _col(w0, dev), _col(new_w, dev)
-            backlog = dict(comm_state["backlog"])
+            backlog = {k: _own_backlog(v)
+                       for k, v in comm_state["backlog"].items()}
             for k in xs:
-                num = ys.pop(k) * w0_d
-                num = _push_sum_hop(num, backlog[k], a, act_pod_d, shifts,
-                                    incs_d, masks_d,
-                                    self.inter_stream_codec(k))
-                mixed[k] = torch.div(num, w_d, out=xs[k])
-                del num
+                ic = self.inter_stream_codec(k)
+
+                def ratio(y, bl, out):
+                    num = _push_sum_hop(y * w0_d, bl, a, act_pod_d, shifts,
+                                        incs_d, masks_d, ic)
+                    return torch.div(num, w_d, out=out)
+
+                mixed[k] = _each_leaf(ratio, ys.pop(k), backlog[k], xs[k])
             new_state["mass"] = torch.from_numpy(new_w)
             new_state["backlog"] = backlog
             new_state["backlog_w"] = torch.from_numpy(new_blw)
@@ -942,7 +1007,8 @@ class Exchange:
                 part_inter = np.float32(1.0)
         elif self.inter_topology == "push_sum":    # single pod: no DCN
             for k in xs:
-                mixed[k] = xs[k].copy_(ys.pop(k))
+                mixed[k] = tree.tree_map(lambda o, y: o.copy_(y), xs[k],
+                                         ys.pop(k))
             part_inter = np.float32(1.0)
         else:                                      # inter "server"
             act_x = xp.active_mask(rnd, G) if xp is not None else ones
@@ -958,18 +1024,24 @@ class Exchange:
                     # payloads enter the mean; coding every group keeps
                     # the noise counter's schedule group-independent)
                     key = "inter:" + k
-                    x0 = xs0[k].to(torch.float32)
-                    d_hat, cs = ic.compress(y - x0, cstates.get(key, {}))
+                    x0 = tree.tree_map(lambda v: v.to(torch.float32),
+                                       xs0[k])
+                    d_hat, cs = ic.compress(tree.tree_map(torch.sub, y, x0),
+                                            cstates.get(key, {}))
                     del y
-                    y = x0 + d_hat
+                    y = tree.tree_map(torch.add, x0, d_hat)
                     del d_hat, x0
                     if ic.stateful:
                         cstates[key] = cs
                         touched = True
-                m = (lw_d * y).sum(dim=0, keepdim=True) / float(n_live)
-                mixed[k] = xs[k].copy_(torch.where(act_i_d > 0,
-                                                   m.expand_as(y), y))
-                del y, m
+
+                def leader_mean(out, v):
+                    m = (lw_d * v).sum(dim=0, keepdim=True) / float(n_live)
+                    return out.copy_(torch.where(act_i_d > 0,
+                                                 m.expand_as(v), v))
+
+                mixed[k] = _each_leaf(leader_mean, xs[k], y)
+                del y
             part_inter = (_mask_mean(plive)
                           if (ip is not None or xp is not None)
                           else np.float32(1.0))
@@ -999,9 +1071,11 @@ class Exchange:
         for name, m in mixed.items():
             st = down[name]
             d_hat, cs = self.downlink_codec.compress(
-                m[:1] - st["ref"][:1], st["state"])
-            m_hat = st["ref"] + d_hat.expand_as(st["ref"])
-            out[name] = m.copy_(m_hat)
+                tree.tree_map(lambda a, r: a[:1] - r[:1], m, st["ref"]),
+                st["state"])
+            m_hat = tree.tree_map(lambda r, d: r + d.expand_as(r),
+                                  st["ref"], d_hat)
+            out[name] = tree.tree_map(lambda a, b: a.copy_(b), m, m_hat)
             down[name] = {"ref": m_hat, "state": cs}
         new_state["down"] = down
         return out, new_state

@@ -21,9 +21,13 @@ Two rounds, as in the reference, and the conventional baseline:
   ``"comm"`` (``init_state(..., exchange=...)``).
 * The pytree round (no layout, a pytree optimizer): every state leaf has
   a leading G axis. It adds the threshold (T_i = inf) mode, which the
-  packed round refuses as the reference's does. It launches no kernel:
-  the pytree optimizers have none, and its exchange mixes the fp32 wire
-  leaf by leaf.
+  packed round refuses as the reference's does. Its exchange runs every
+  stream leaf by leaf through the staged path, as the reference's does
+  (the cast codecs, the downlink, async_stale, fault plans, push_sum and
+  the tiers). It launches no kernel: the pytree optimizers have none,
+  and a tree stream never reaches the fused exchange. It leaves its
+  caller's state as it was (the lossy streams' round start is the
+  caller's leaves, read only).
 * ``make_sync_step``: synchronous data parallelism, one step on the
   global batch (packed: one fused update and one ``sq_norm`` launch).
 
@@ -37,9 +41,8 @@ stops on its own, which gives the counts of the reference's vmapped
 
 With an overlapped exchange the packed round mixes the previous round's
 in-flight payload before its local steps and puts its own result in
-flight (DESIGN.md §14); the pytree round refuses overlap, as the
-reference's does, and faults, push_sum and the tiers (not ported there
-yet: ROADMAP.md Queue A item 1b).
+flight (DESIGN.md §14); the pytree round refuses overlap and the
+flat-only codecs (int8, int8z, top-k), as the reference's does.
 
 Not ported yet: sharded execution (ROADMAP.md Queue A item 5).
 """
@@ -186,7 +189,7 @@ def _clamp_nonneg_streams(mixed: dict, opt, exch) -> dict:
         return mixed
     for k in opt.moment_nonneg:
         if k in mixed:
-            mixed[k].clamp_(min=0.0)
+            tree.tree_map(lambda x: x.clamp_(min=0.0), mixed[k])
     return mixed
 
 
@@ -372,9 +375,15 @@ def _make_tree_local_round(loss_fn, opt, cfg, exch):
                                    for x in outs]) for k in outs[0][2]}
         metrics["inner_steps"] = metrics["inner_steps"].to(torch.int32)
         consensus_pre = _consensus_sq_tree(params_G)
-        # every stream through the fp32 wire (the step count never is)
+        # every stream (params and moments) through the exchange; the step
+        # count never is. The local steps' results are the round's own
+        # (the exchange mixes them in place); a lossy stream's codec
+        # encodes the delta against the caller's round-start leaves
         xs = {"params": params_G, **{k: opt_G[k] for k in mkeys}}
-        mixed = {k: exch.mix_tree(v) for k, v in xs.items()}
+        xs0 = {k: (state_G["params"] if k == "params" else state_G["opt"][k])
+               for k in xs if exch.lossy_stream(k)}
+        mixed, comm_state = exch.streams(xs, xs0, comm_state)
+        mixed = _clamp_nonneg_streams(mixed, opt, exch)
         n = sum(x.numel() // G for x in tree.leaves(params_G))
         msizes = {k: sum(x.numel() // G for x in tree.leaves(opt_G[k]))
                   for k in mkeys}

@@ -20,11 +20,17 @@ sync-DP baseline) on one device (counterpart of
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --arch paper-mlp --reduced --packed --comm ring --codec int8 \\
         --overlap                                 # delayed mixing
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --arch paper-mlp --reduced --comm push_sum \\
+        --drop-rate 0.1                           # on the pytree round
 
 Runs on ``cuda`` unless ``--device cpu`` is given; on ``cuda`` the
 packed updates, norms and exchange codecs launch the CUDA kernels of
-``repro_torch/kernels`` (the pytree round, without ``--packed``, has
-none). ``--adaptive-t`` refits T every round from the round's local
+``repro_torch/kernels``. The pytree round, without ``--packed``, has
+none: it takes every exchange flag the reference's pytree round takes
+(the cast codecs, async_stale, the fault flags, push_sum and the tiers),
+each stream mixed leaf by leaf; int8, int8z, top-k and ``--overlap``
+need ``--packed``, as in the reference. ``--adaptive-t`` refits T every round from the round's local
 gradient-norm trajectory (paper Sec 4, ``core/controller.py``
 ``AdaptiveT``; on a lossy network the cost ratio is repriced by the
 exchange's delivery rate). Each round prints its participation (the
@@ -192,14 +198,17 @@ def main(argv=None) -> None:
                          "within pods")
     ap.add_argument("--codec", default="fp32",
                     help="params wire codec: fp32, fp16, bf16, int8, "
-                         "int8z or topk (lossy codecs need --packed)")
+                         "int8z or topk (int8, int8z and topk need "
+                         "--packed)")
     ap.add_argument("--moment-codec", default="fp32",
                     help="wire codec of every optimizer moment stream "
-                         "(fp32, fp16, bf16, int8, int8z)")
+                         "(fp32, fp16, bf16, int8, int8z; int8 and int8z "
+                         "need --packed)")
     ap.add_argument("--downlink-codec", default="",
                     help="codec of the server/async_stale broadcast reply "
-                         "(fp32, fp16, bf16, int8); default: the idealized "
-                         "broadcast priced at the uplink widths")
+                         "(fp32, fp16, bf16, int8; int8 needs --packed); "
+                         "default: the idealized broadcast priced at the "
+                         "uplink widths")
     ap.add_argument("--mix-rounds", type=int, default=1,
                     help="W hops per round on ring/gossip")
     ap.add_argument("--staleness", type=int, default=1,

@@ -111,7 +111,7 @@ def test_fusable_takes_any_g_and_chunk(topo, codec, g, chunk):
     fits = (codec in ("int8", "fp16", "bf16", "topk")
             and topo in ("server", "ring", "gossip")
             and (codec != "topk" or topo == "server"))
-    assert ex._fusable(ex.codec) is fits
+    assert ex._fusable(ex.codec, torch.zeros(g, 8)) is fits
     jex = jexchange.get_exchange(topo, codec, g, chunk=chunk)
     assert jex._fusable(jex.codec, jnp.zeros((g, 8), jnp.float32)) is fits
 

@@ -19,9 +19,11 @@ reference's, on the same numpy inputs:
 - the wire accounting, exactly equal, over every topology x codec x
   moment codec x downlink codec x G x mix_rounds x staleness;
 - the refusals: the same combinations refused, with the same message;
-  push_sum, hierarchical tiers, faults and overlap refused by the pytree
-  round (the packed round's are in ``tests/test_torch_faults.py`` and its
-  siblings).
+  overlap refused by the pytree round, as the reference refuses it, while
+  push_sum, the hierarchical tiers and faults run a tree stream there and
+  match the reference's (the packed round's are in
+  ``tests/test_torch_faults.py`` and its siblings; the pytree round's
+  whole exchange in ``tests/test_torch_tree_exchange.py``).
 """
 import itertools
 
@@ -227,15 +229,42 @@ def test_wire_accounting_and_refusals_equal_reference(topo):
     dict(topology="server", stall_rate=0.1),
 ])
 def test_unported_exchanges_are_refused(kw):
-    """push_sum, the tiers, overlap and faults run on the packed round
-    (``tests/test_torch_{push_sum,hierarchical,overlap,faults}.py``); the
-    pytree round still refuses them: overlap as the reference does (it
-    needs the flat buffer), the others by name (ROADMAP Queue A item
-    1b)."""
-    ex = exchange.get_exchange(n_groups=4, **kw)
-    match = "inflight" if ex.overlap else "Queue A item 1b"
-    with pytest.raises(NotImplementedError, match=match):
-        ex.check_tree()
+    """The exchanges the pytree round once refused. Overlap it still
+    refuses, as the reference does (it needs the flat buffer). push_sum,
+    the tiers and faults it takes: three rounds of a two-leaf tree stream
+    (and a moment stream) match the reference's ``streams`` on the same
+    tree, the round counter and participation exactly, the values at
+    float32 tolerance (fp32 wires)."""
+    ex = exchange.get_exchange(n_groups=4, fault_seed=2, **kw)
+    if ex.overlap:
+        with pytest.raises(NotImplementedError, match="inflight"):
+            ex.check_tree()
+        return
+    ex.check_tree()
+    ref = jexchange.get_exchange(n_groups=4, fault_seed=2, **kw)
+    rs = np.random.RandomState(3)
+    shapes = {"a": (4, 4, 3), "b": (4, 5)}
+    start = {s: {k: np.repeat(rs.randn(1, *v[1:]).astype(np.float32), 4, 0)
+                 for k, v in shapes.items()} for s in ("params", "m")}
+    pst = ex.init({k: torch.tensor(v) for k, v in start["params"].items()},
+                  {"m": {k: torch.tensor(v) for k, v in start["m"].items()}})
+    jst = ref.init({k: jnp.asarray(v) for k, v in start["params"].items()},
+                   {"m": {k: jnp.asarray(v) for k, v in start["m"].items()}})
+    for _ in range(3):
+        x = {s: {k: v + rs.randn(*v.shape).astype(np.float32)
+                 for k, v in start[s].items()} for s in start}
+        pm, pst = ex.streams({s: {k: torch.tensor(v) for k, v in t.items()}
+                              for s, t in x.items()}, {}, pst)
+        jm, jst = ref.streams({s: {k: jnp.asarray(v) for k, v in t.items()}
+                               for s, t in x.items()}, {}, jst)
+        assert set(pst) == set(jst)
+        assert int(pst["round"]) == int(jst["round"])
+        assert float(pst["participation"]) == float(jst["participation"])
+        for s in x:
+            for k in shapes:
+                np.testing.assert_allclose(pm[s][k].numpy(),
+                                           np.asarray(jm[s][k]), rtol=1e-5,
+                                           atol=1e-6)
 
 
 def test_unknown_names_are_refused():

@@ -248,15 +248,19 @@ def test_round_refuses_missing_push_sum_state():
         st["comm"] = {"round": torch.zeros((), dtype=torch.int32)}
         with pytest.raises(ValueError, match=match):
             rnd(st, tb)
-    # the pytree round refuses push_sum by name
-    with pytest.raises(NotImplementedError, match="Queue A item 1b"):
-        lsgd.make_local_round(quad_loss_t, optim.sgd(0.1), cfg,
-                              exchange=comm.get_exchange("push_sum", "fp32",
-                                                         G))
-    with pytest.raises(NotImplementedError, match="Queue A item 1b"):
-        lsgd.make_local_round(quad_loss_t, optim.sgd(0.1), cfg,
-                              exchange=comm.get_exchange("ring", "fp32", G,
-                                                         drop_rate=0.1))
+    # the pytree round takes push_sum and faults, and refuses a state
+    # built without their comm state in the same way
+    tree_st = lsgd.init_state(tp, optim.sgd(0.1), G)
+    for ex, match in ((comm.get_exchange("push_sum", "fp32", G), "mass"),
+                      (comm.get_exchange("server", "fp32", G,
+                                         drop_rate=0.2), "pushed")):
+        rnd = lsgd.make_local_round(quad_loss_t, optim.sgd(0.1), cfg,
+                                    exchange=ex)
+        with pytest.raises(ValueError, match="init_state"):
+            rnd(tree_st, tb)
+        with pytest.raises(ValueError, match=match):
+            rnd({**tree_st, "comm": {"round": torch.zeros(
+                (), dtype=torch.int32)}}, tb)
 
 
 def test_hook_is_unused_by_cast_wires():

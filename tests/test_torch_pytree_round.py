@@ -26,7 +26,7 @@ from repro.core import localsgd as jlsgd
 from repro.data.synthetic import TokenPipeline as JaxTokenPipeline
 from repro.models import build_model as jax_build_model
 from repro.optim import packing as jpacking
-from repro_torch import bridge, comm, optim
+from repro_torch import bridge, comm, optim, tree
 from repro_torch.configs.base import get_config
 from repro_torch.core import localsgd as lsgd
 from repro_torch.models.api import build_model
@@ -250,22 +250,70 @@ def test_packed_refuses_threshold_and_microbatch_t_i():
 
 def test_tree_round_refuses_lossy_exchanges():
     """int8/int8z/top-k need the flat buffer (the reference refuses them
-    too); the tree path's fp16/bf16 codecs and async_stale wait for ROADMAP
-    Queue A item 1b."""
+    too); the cast codecs and async_stale run on the tree path
+    (``test_tree_round_runs_the_cast_codecs_and_async_stale``)."""
     cfg = lsgd.LocalSGDConfig(n_groups=G)
     opt = optim.sgd(0.1)
     for kw, match in (({"codec": "int8"}, "packed"),
                       ({"codec": "topk"}, "packed"),
-                      ({"codec": "bf16"}, "Queue A item 1b"),
-                      ({"moment_codec": "fp16"}, "Queue A item 1b"),
-                      ({"downlink_codec": "bf16"}, "Queue A item 1b"),
-                      ({"topology": "async_stale"}, "Queue A item 1b")):
+                      ({"codec": "int8z"}, "packed")):
         ex = comm.get_exchange(**{"topology": "server", "n_groups": G, **kw})
         with pytest.raises(NotImplementedError, match=match):
             lsgd.make_local_round(quad_loss_t, opt, cfg, exchange=ex)
     # nothing on the wire: the codecs never run
     lsgd.make_local_round(quad_loss_t, opt, cfg, exchange=comm.get_exchange(
         "none", "int8", G))
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("sgd", {"codec": "bf16"}),
+    ("momentum", {"moment_codec": "fp16"}),
+    ("sgd", {"downlink_codec": "bf16"}),
+    ("momentum", {"topology": "async_stale"}),
+])
+def test_tree_round_runs_the_cast_codecs_and_async_stale(name, kw):
+    """The cells ``test_tree_round_refuses_lossy_exchanges`` once refused,
+    against the reference's pytree round over 3 rounds: params and
+    moments within one ulp of the codec at the values' magnitude (2**-7
+    bf16, 2**-10 fp16: a last-bit difference can move a cast by one codec
+    step), TOL on the fp32 wire; wire bytes, step counts and the metric
+    keys exact (``tests/test_torch_tree_exchange.py`` holds the whole
+    exchange)."""
+    params, batch = quadratic(9)
+    cfg = dict(n_groups=G, inner_steps=2)
+    ekw = {"topology": "server", "n_groups": G, **kw}
+    jex, tex = jcomm.get_exchange(**ekw), comm.get_exchange(**ekw)
+    jopt, topt = joptim.get(name, LR[name]), optim.get(name, LR[name])
+    jrnd = jax.jit(jlsgd.make_local_round(
+        quad_loss_j, jopt, jlsgd.LocalSGDConfig(**cfg), exchange=jex))
+    jst = jlsgd.init_state(jax.tree.map(jnp.asarray, params), jopt,
+                           n_groups=G, exchange=jex)
+    trnd = lsgd.make_local_round(quad_loss_t, topt,
+                                 lsgd.LocalSGDConfig(**cfg), exchange=tex)
+    tst = lsgd.init_state(bridge.params_from_numpy(params), topt, G,
+                          exchange=tex)
+    ulp = {"bf16": 2.0 ** -7, "fp16": 2.0 ** -10}.get(
+        next(iter(kw.values())))
+    jb, tb = jax.tree.map(jnp.asarray, batch), bridge.params_from_numpy(batch)
+    for _ in range(3):
+        jst, jm = jrnd(jst, jb)
+        tst, tm = trnd(tst, tb)
+        js, jm = jax.device_get(jst), jax.device_get(jm)
+        moments = [k for k in tst["opt"] if k != "count"]
+        for jv, tv in zip(
+                jax.tree.leaves({"params": js["params"],
+                                 **{k: js["opt"][k] for k in moments}}),
+                tree.leaves({"params": tst["params"],
+                             **{k: tst["opt"][k] for k in moments}})):
+            tol = TOL if ulp is None else dict(
+                rtol=ulp, atol=ulp * float(np.abs(jv).max()))
+            np.testing.assert_allclose(tv.numpy(), np.asarray(jv), **tol)
+        assert set(tm) == set(jm)
+        for k, jv in jm.items():
+            if k.startswith("wire_bytes") or k == "inner_steps":
+                np.testing.assert_array_equal(np.asarray(tm[k]),
+                                              np.asarray(jv), err_msg=k)
+    assert set(tst.get("comm", {})) == set(js.get("comm", {}))
 
 
 @pytest.mark.parametrize("packed", [False, True])

@@ -6,14 +6,12 @@ reference engine's on the reductions under both policies (with the
 reference's params from ``PRNGKey(0)``), and equal when each request is
 replayed alone; the handoff of a packed round's checkpoint to the serve
 params for zamba2's shared attention and xlstm's nested stacks; and both
-launchers at ``--arch granite-moe-1b-a400m --reduced --device cpu``.
+launchers at ``--arch granite-moe-1b-a400m --reduced --device cpu``
+(their ``main``, in this process).
 
 Tolerance: none. Geometry, layouts, pool rows and greedy tokens are
 exact; restored params are bit-equal."""
 import dataclasses
-import os
-import subprocess
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -40,7 +38,6 @@ from repro_torch.serve import (Engine, EngineConfig, Request, paging,
                                poisson_workload, restore_params)
 from repro_torch.serve import decode as sdecode
 
-ROOT = os.path.join(os.path.dirname(__file__), "..")
 ARCHS = ("granite-moe-1b-a400m", "zamba2-7b", "xlstm-1.3b")
 ECFG = dict(n_slots=3, page_size=4, max_prompt=12, max_new=6)
 
@@ -220,22 +217,38 @@ def test_packed_round_checkpoint_restores_to_serve_params(arch, tmp_path):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
-def test_launchers_train_and_serve_a_reduced_moe_on_cpu(tmp_path):
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+def test_launchers_train_and_serve_a_reduced_moe_on_cpu(tmp_path, capsys):
+    """The train and serve launchers' ``main``, in this process: a packed
+    moe run checkpointed, then served from it with the parity check."""
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.launch import train as train_launcher
+
+    def run(main, args):
+        # one intra-op thread: many small ops, whose parallel regions
+        # stall when the machine is loaded (as under the parallel suite)
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            main(args)
+            code = 0
+        except SystemExit as e:
+            code = e.code
+        finally:
+            torch.set_num_threads(threads)
+        out = capsys.readouterr()
+        return code, out.out, out.err
+
     path = str(tmp_path / "moe")
     base = ["--arch", "granite-moe-1b-a400m", "--reduced", "--device", "cpu"]
-    train = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.train", *base, "--packed",
-         "--rounds", "2", "--groups", "2", "--t-inner", "2", "--seq", "32",
-         "--checkpoint", path], cwd=ROOT, env=env, capture_output=True,
-        text=True, timeout=300)
-    assert train.returncode == 0, train.stderr
-    rounds = [l for l in train.stdout.splitlines() if l.startswith("round ")]
-    assert len(rounds) == 2 and f"checkpoint -> {path}.npz" in train.stdout
-    serve = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", *base,
-         "--from-checkpoint", path, "--requests", "4", "--check-parity"],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
-    assert serve.returncode == 0, serve.stderr
-    assert "arch=granite-moe-1b-a400m-reduced" in serve.stdout
-    assert "parity OK: 4 requests identical" in serve.stdout
+    code, out, err = run(train_launcher.main, [
+        *base, "--packed", "--rounds", "2", "--groups", "2", "--t-inner",
+        "2", "--seq", "32", "--checkpoint", path])
+    assert code == 0, err
+    rounds = [l for l in out.splitlines() if l.startswith("round ")]
+    assert len(rounds) == 2 and f"checkpoint -> {path}.npz" in out
+    code, out, err = run(serve_launcher.main, [
+        *base, "--from-checkpoint", path, "--requests", "4",
+        "--check-parity"])
+    assert code == 0, err
+    assert "arch=granite-moe-1b-a400m-reduced" in out
+    assert "parity OK: 4 requests identical" in out
