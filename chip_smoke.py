@@ -295,6 +295,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``--comm push_sum --drop-rate 0.1``, 2 rounds) must exit 0 and print
    each round's participation.
 
+15. round telemetry, through ``python -m repro_torch.launch.train``'s
+   ``main``, each run in a fresh process (``python3 chip_smoke.py
+   --counted-train <flags>``, which prints the process's launches last).
+   (a) alone: paper-lenet adamw (lr 1e-3), G 4, T 4, the ring with int8
+   and ``--overlap`` (one hop: both packages refuse overlap with more),
+   3 rounds, ``--trace`` and ``--checkpoint``: exit 0, the port's
+   ``obs.report.check`` finds no problem, every round ``exchange_exposed
+   <= exchange_total``; the calibrated local and exchange times, each
+   round's phases and the overlap efficiency logged; ``fused_adamw``
+   launched 36 times (the 3 rounds and the calibration's 6) and
+   ``qdq_int8`` 3. Then at once: (b) the online controller at paper-mlp
+   (sgd, lr 0.02, 4 rounds: it may ask for its cap of 10,000 steps a
+   round), each round's T and seconds logged, ``fused_sgd`` 12 (the
+   calibration) plus its T a round; (c) ``--mode sync`` with
+   ``--checkpoint`` (2 steps: ``fused_sgd`` and ``sq_norm_groups`` 2
+   each, records ``step``, ``step``, ``checkpoint``) and the pytree
+   round with push_sum at drop 0.1 (no kernel, no exchange split); (d)
+   one paper-lenet adamw round under ``--profile``: one Chrome trace
+   holding the ``round`` annotation, kernel events and 4 of the
+   ``fused_adamw`` kernel (``fused_adamw`` 4). Every trace passes the
+   check. (e) The OnlineT headline of ``benchmarks/overlap.py``
+   (``ONLINE_T``) on the card with the kernels, the counts set to 0
+   before it: both runs reach the floor 1e-3 within 600 rounds, the
+   static/online wire ratio is at least 1.0, ``fused_sgd`` launched once
+   a local step (the T-8 probe included) and ``sq_norm_groups`` 2 + T a
+   round; its rounds and ratio logged beside ``BENCH_overlap.json``'s.
+
 The line before the last is one JSON object with each kernel's numbers
 (the launches of phases 5 and 8 for the first eight, of phase 10's
 ``ops`` path for the last four; the update kernels and
@@ -303,7 +330,8 @@ The line before the last is one JSON object with each kernel's numbers
 ``fault_launches``, and the kernels of phase 13's path its
 ``family_launches``, and phase 14's ``tree_exchange_launches`` (the
 pytree runs: 0) and ``tree_exchange_packed_launches`` (their packed
-comparisons), each path's own count; ``paged_decode_attention``
+comparisons), and phase 15's ``telemetry_launches`` (its launcher
+processes and the headline), each path's own count; ``paged_decode_attention``
 and ``mamba_chunk`` also carry ``device_ms``, the device's time alone at
 the shape of their ``ms``); the last line is ``{"ok": true, "device":
 {...}}``.
@@ -4049,6 +4077,322 @@ def phase14(torch, K):
             "tree_exchange_packed_launches": packed_counts}
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: round telemetry (fenced traces, the exchange-time split,
+# --profile, the online T controller)
+# ---------------------------------------------------------------------------
+# the OnlineT headline of benchmarks/overlap.py (online_t_section,
+# :249-296; _quad_problem, :174-181, whose draws _feasibility repeats;
+# WIRE_BAR, :68): G 4, r 8, d 40, server/fp32, packed sgd at lr 0.3, a
+# T-8 probe for the static T*, OnlineT(r=1, t_min=1, t_max=256) fed the
+# simulated times local_s = r * T, exchange_s = 1
+ONLINE_T = dict(G=4, rows=8, D=40, lr=0.3, probe_t=8, r_cost=1.0,
+                floor=1e-3, max_rounds=600, wire_bar=1.0)
+# BENCH_overlap.json's online_t: the reference's own figures (CPU; round
+# counts and bytes, not times)
+ONLINE_T_REF = dict(static_rounds=419, online_rounds=37, ratio=11.32)
+TELEMETRY_ARCH = "paper-lenet"
+TELEMETRY_SMALL = "paper-mlp"
+
+
+def online_t_headline(torch, device, floor=ONLINE_T["floor"],
+                      max_rounds=ONLINE_T["max_rounds"]):
+    """The reference's ``online_t_section`` on the port: static T* (the
+    Sec-4 fit of a T-8 probe round's decay, frozen) against ``OnlineT``
+    on the same problem and exchange, each run until the group-mean
+    grad_sq reaches ``floor``. Rounds are built once per distinct T, as
+    the launcher rebuilds on a T change. Returns the reference's keys."""
+    import numpy as np
+
+    from repro_torch import bridge, comm, optim
+    from repro_torch.core import controller, localsgd as lsgd, theory
+    from repro_torch.optim import packing
+
+    c = ONLINE_T
+    G, r_cost = c["G"], c["r_cost"]
+    params, batch = _feasibility(np, G, c["D"], rows=c["rows"])
+    p = bridge.params_from_numpy(params, device)
+    b = bridge.params_from_numpy(batch, device)
+    layout = packing.layout_of(p)
+    ex = comm.get_exchange("server", "fp32", G)
+    opt = optim.packed("sgd", c["lr"])
+
+    def build(t):
+        return lsgd.make_local_round(_quad_loss, opt, lsgd.LocalSGDConfig(
+            n_groups=G, inner_steps=t, metrics="traj"), layout=layout,
+            exchange=ex)
+
+    _, m0 = build(c["probe_t"])(lsgd.init_state(p, opt, G, layout,
+                                                exchange=ex), b)
+    fit = theory.fit_decay(m0["grad_sq_traj"][0].cpu().numpy())
+    t_static = max(1, int(round(theory.t_star_from_fit(fit, r_cost))))
+
+    def run_to_floor(make_t, on_round=None):
+        st = lsgd.init_state(p, opt, G, layout, exchange=ex)
+        cache, n, gsq, t_total = {}, 0, float("inf"), 0
+        wire_round = ex.wire_bytes_per_round(layout.padded)
+        while n < max_rounds and gsq > floor:
+            t_cur = int(make_t())
+            if t_cur not in cache:
+                cache[t_cur] = build(t_cur)
+            st, m = cache[t_cur](st, b)
+            n += 1
+            t_total += t_cur
+            gsq = float(m["grad_sq"].mean())
+            if on_round is not None:
+                on_round(m, t_cur)
+        return {"rounds": n, "local_steps": t_total,
+                "wire_bytes_total": wire_round * n, "gsq_final": gsq,
+                "reached_floor": gsq <= floor, "distinct_t": sorted(cache)}
+
+    static = run_to_floor(lambda: t_static)
+    ctl = controller.OnlineT(r=r_cost, t_min=1, t_max=256)
+    state = {"t": t_static}
+
+    def on_round(m, t_used):
+        codec_err = sum(float(v.mean()) for k, v in m.items()
+                        if k.startswith("codec_err/"))
+        state["t"] = ctl.update(
+            m["grad_sq_traj"][0].cpu().numpy(), t_used=t_used,
+            local_s=r_cost * t_used, exchange_s=1.0,
+            consensus_pre=float(m["consensus_sq"].mean()),
+            consensus_post=float(m["consensus_sq_post"].mean()),
+            codec_err=codec_err)
+
+    online = run_to_floor(lambda: state["t"], on_round)
+    return {"floor": floor, "t_static": t_static, "static": static,
+            "online": online,
+            "controller_tail": ctl.history[-3:] if ctl.history else [],
+            "wire_ratio_static_over_online":
+                static["wire_bytes_total"]
+                / max(online["wire_bytes_total"], 1)}
+
+
+def counted_train_main(argv) -> int:
+    """``python3 chip_smoke.py --counted-train <launcher flags>``: the train
+    launcher's ``main`` in this (fresh) process, then every kernel's
+    launches over the process as a last line ``launches {...}``."""
+    sys.path.insert(0, SRC)
+    from repro_torch import kernels as K
+    from repro_torch.kernels import (decode_attention,  # noqa: F401
+                                     exchange_epilogue, flash_attention,
+                                     fused_adamw, fused_momentum, fused_sgd,
+                                     mamba_scan, quantize, rmsnorm, sq_norm)
+    from repro_torch.launch import train
+    train.main(argv)
+    print("launches " + json.dumps(_all_counts(K)))
+    return 0
+
+
+def _telemetry_start(name, args):
+    """A --counted-train process of phase 15 (its output in pipes)."""
+    cmd = [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+           "--counted-train"] + args
+    log(f"telemetry {name}: train {' '.join(args)}")
+    return subprocess.Popen(cmd, cwd=ROOT, env=dict(os.environ,
+                                                    PYTHONPATH=SRC),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def _telemetry_finish(name, proc, timeout):
+    """Wait for a phase-15 process: its stdout lines (logged) and the
+    launches it counted. Fails on a non-zero exit."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    lines = out.splitlines()
+    for line in lines:
+        if not line.startswith("launches "):
+            log(f"telemetry {name}: {line}")
+    if proc.returncode != 0 or not lines or \
+            not lines[-1].startswith("launches "):
+        fail(f"telemetry {name} exited {proc.returncode}: {err[-3000:]}")
+    return lines, json.loads(lines[-1][len("launches "):])
+
+
+def _checked_trace(name, path):
+    """The port's report.check on a launcher's trace (no problem allowed):
+    (meta, records, summary)."""
+    from repro_torch.obs import report
+    meta, records = report.load(path)
+    problems = report.check(meta, records)
+    if problems:
+        fail(f"telemetry {name}: {path} fails the check: {problems}")
+    return meta, records, report.summarize(meta, records)
+
+
+def _hold_launches(name, got, want):
+    """Exact counts for the kernels in ``want``."""
+    bad = {k: (got.get(k, 0), v) for k, v in want.items()
+           if got.get(k, 0) != v}
+    if bad:
+        fail(f"telemetry {name}: launches (got, expected) {bad}; all {got}")
+
+
+def telemetry_launcher_runs(torch, tmp):
+    """Phase 15, parts (a)-(d): the train launcher with --trace, the
+    calibrated split, --adaptive-t online, --mode sync, the pytree round
+    and --profile, each in a fresh process. Returns the launches of all
+    of them, summed."""
+    total = {}
+
+    def add(got):
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+
+    # (a) alone: its calibrated times are the part's measurement.
+    # --mix-rounds stays 1: both packages refuse overlap with more hops
+    lenet = ["--arch", TELEMETRY_ARCH, "--packed", "--groups", "4",
+             "--t-inner", "4"]
+    over = os.path.join(tmp, "overlap.jsonl")
+    lines, got = _telemetry_finish("overlap", _telemetry_start(
+        "overlap", lenet + ["--opt", "adamw", "--lr", "1e-3", "--comm",
+                            "ring", "--codec", "int8", "--overlap",
+                            "--rounds", "3", "--trace", over,
+                            "--checkpoint", os.path.join(tmp, "ck")]), 300)
+    meta, recs, summ = _checked_trace("overlap", over)
+    rounds = [r for r in recs if r["kind"] == "round"]
+    for r in rounds:
+        ph = r["phase_s"]
+        if not ph["exchange_exposed"] <= ph["exchange_total"]:
+            fail(f"telemetry overlap round {r['round']}: exposed > total "
+                 f"{ph}")
+        log(f"telemetry overlap round {r['round']}: phases {ph}")
+    log(f"telemetry overlap: {next(l for l in lines if 'fences' in l)}; "
+        f"overlap efficiency {summ.get('overlap_efficiency')!r}; "
+        f"records {[r['kind'] for r in recs]}")
+    if len(rounds) != 3 or recs[-1]["kind"] != "checkpoint":
+        fail(f"telemetry overlap: records {[r['kind'] for r in recs]}")
+    # the run's 3 rounds and the calibration's 2 x 3 (comm none and the
+    # barrier ring, each a warm-up and two timed), T 4 each; the overlap
+    # encode's qdq_int8 once a run round
+    _hold_launches("overlap", got, {"fused_adamw": 4 * 9, "qdq_int8": 3})
+    add(got)
+
+    # (b)-(d) at once
+    online = os.path.join(tmp, "online.jsonl")
+    sync = os.path.join(tmp, "sync.jsonl")
+    tree = os.path.join(tmp, "pytree.jsonl")
+    prof = os.path.join(tmp, "prof")
+    small = ["--arch", TELEMETRY_SMALL]
+    procs = {
+        # lr 0.02 as phase 11's static controller run; rounds cut to 4:
+        # the controller may ask for its cap of 10,000 steps a round
+        "online": _telemetry_start("online", small + [
+            "--packed", "--opt", "sgd", "--lr", "0.02", "--adaptive-t",
+            "online", "--rounds", "4", "--trace", online]),
+        "sync": _telemetry_start("sync", small + [
+            "--packed", "--mode", "sync", "--rounds", "2", "--trace", sync,
+            "--checkpoint", os.path.join(tmp, "ck_sync")]),
+        "pytree": _telemetry_start("pytree", small + [
+            "--comm", "push_sum", "--drop-rate", "0.1", "--rounds", "2",
+            "--trace", tree]),
+        "profile": _telemetry_start("profile", lenet + [
+            "--opt", "adamw", "--lr", "1e-3", "--rounds", "1", "--profile",
+            prof]),
+    }
+    try:
+        res = {k: _telemetry_finish(k, p, 400) for k, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+
+    meta, recs, _ = _checked_trace("online", online)
+    ts = [int(max(r["metrics"]["inner_steps"])) for r in recs]
+    secs = [r["phase_s"]["round"] for r in recs]
+    ctl_lines = [l for l in res["online"][0] if l.startswith("fences")]
+    log(f"telemetry online: T {ts}, round s {secs}, {ctl_lines}")
+    if len(ts) != 4 or ts[0] != 4:
+        fail(f"telemetry online: T {ts}")
+    # calibration: 3 rounds of T 4 on comm none
+    _hold_launches("online", res["online"][1],
+                   {"fused_sgd": 12 + sum(ts)})
+
+    meta, recs, _ = _checked_trace("sync", sync)
+    kinds = [r["kind"] for r in recs]
+    if kinds != ["step", "step", "checkpoint"]:
+        fail(f"telemetry sync: records {kinds}")
+    _hold_launches("sync", res["sync"][1], {"fused_sgd": 2,
+                                            "sq_norm_groups": 2})
+
+    meta, recs, _ = _checked_trace("pytree", tree)
+    if any("exchange_total" in r["phase_s"] for r in recs):
+        fail("telemetry pytree: an exchange split on the pytree round")
+    _hold_launches("pytree", res["pytree"][1],
+                   dict.fromkeys(res["pytree"][1], 0))
+
+    files = [os.path.join(prof, f) for f in os.listdir(prof)
+             if f.endswith(".json")] if os.path.isdir(prof) else []
+    if len(files) != 1:
+        fail(f"telemetry profile: Chrome traces {files}")
+    with open(files[0]) as fh:
+        events = json.load(fh)["traceEvents"]
+    names = {e.get("name") for e in events}
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    adamw = [e for e in kernels if "update_rows" in e.get("name", "")
+             and "AdamW" in e.get("name", "")]
+    log(f"telemetry profile: {os.path.getsize(files[0]):,} B, "
+        f"{len(events)} events, {len(kernels)} kernel events, "
+        f"{len(adamw)} fused_adamw ({adamw[0]['name'] if adamw else None})")
+    if "round" not in names or not kernels or len(adamw) != 4:
+        fail("telemetry profile: the trace lacks the round annotation or "
+             "the kernel events (4 of fused_adamw)")
+    _hold_launches("profile", res["profile"][1], {"fused_adamw": 4})
+    for k in ("online", "sync", "pytree", "profile"):
+        add(res[k][1])
+    return total
+
+
+def telemetry_headline(torch, K):
+    """Phase 15, part (e): the OnlineT headline on the card with the
+    kernels, its launches counted from 0 (fused_sgd T a round, the probe
+    included, sq_norm_groups 2 + T a round with the trajectory). Holds:
+    both runs reach the floor, static/online wire >= WIRE_BAR."""
+    _zero_all_counts(K)
+    t0 = time.perf_counter()
+    h = online_t_headline(torch, "cuda")
+    sec = time.perf_counter() - t0
+    got = _all_counts(K)
+    st, on = h["static"], h["online"]
+    log(f"telemetry headline: T* {h['t_static']}, static {st['rounds']} "
+        f"rounds ({st['local_steps']} steps, gsq {st['gsq_final']!r}), "
+        f"online {on['rounds']} rounds ({on['local_steps']} steps, gsq "
+        f"{on['gsq_final']!r}, T {on['distinct_t']}), wire ratio "
+        f"{h['wire_ratio_static_over_online']!r} (the reference on the "
+        f"CPU, BENCH_overlap.json: {ONLINE_T_REF}); {sec:.1f} s")
+    if not (st["reached_floor"] and on["reached_floor"]) or \
+            h["wire_ratio_static_over_online"] < ONLINE_T["wire_bar"]:
+        fail(f"telemetry headline: {h}")
+    rounds = st["rounds"] + on["rounds"] + 1
+    steps = st["local_steps"] + on["local_steps"] + ONLINE_T["probe_t"]
+    want = dict.fromkeys(got, 0)
+    want.update(fused_sgd=steps, sq_norm_groups=2 * rounds + steps)
+    if got != want:
+        fail(f"telemetry headline launches {got}, expected {want}")
+    return got
+
+
+def phase15(torch, K):
+    """Phase 15: round telemetry. Returns the launches of its runs (the
+    launcher processes' and the headline's) as ``telemetry_launches``."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tel_") as tmp:
+        counts = telemetry_launcher_runs(torch, tmp)
+    log(f"phase 15 launchers: {time.perf_counter() - t0:.1f} s")
+    t = time.perf_counter()
+    for k, v in telemetry_headline(torch, K).items():
+        counts[k] = counts.get(k, 0) + v
+    log(f"phase 15 headline: {time.perf_counter() - t:.1f} s")
+    log(f"phase 15: {time.perf_counter() - t0:.1f} s; launches {counts}")
+    return {"telemetry_launches": counts}
+
+
 def _kernel_name(mangled):
     """A ptxas entry name, short: the kernel's name after its namespace
     and its raw template arguments (``paged_decode_kernel ILi64ELi1EE``:
@@ -4068,6 +4412,8 @@ def _kernel_name(mangled):
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--figure":
         return figure_main(sys.argv[2])
+    if len(sys.argv) > 2 and sys.argv[1] == "--counted-train":
+        return counted_train_main(sys.argv[2:])
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4145,6 +4491,7 @@ def main() -> int:
     by_path.update(phase12(torch, K))
     by_path.update(phase13(torch, K)[0])
     by_path.update(phase14(torch, K))
+    by_path.update(phase15(torch, K))
 
     # again at the end, where a tail of the output still holds them
     log(built)

@@ -23,6 +23,10 @@ sync-DP baseline) on one device (counterpart of
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --arch paper-mlp --reduced --comm push_sum \\
         --drop-rate 0.1                           # on the pytree round
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --arch paper-mlp --reduced --packed --adaptive-t online \\
+        --trace t.jsonl --profile prof            # telemetry
+    PYTHONPATH=src python -m repro_torch.obs.report t.jsonl --check
 
 Runs on ``cuda`` unless ``--device cpu`` is given; on ``cuda`` the
 packed updates, norms and exchange codecs launch the CUDA kernels of
@@ -30,29 +34,40 @@ packed updates, norms and exchange codecs launch the CUDA kernels of
 none: it takes every exchange flag the reference's pytree round takes
 (the cast codecs, async_stale, the fault flags, push_sum and the tiers),
 each stream mixed leaf by leaf; int8, int8z, top-k and ``--overlap``
-need ``--packed``, as in the reference. ``--adaptive-t`` refits T every round from the round's local
-gradient-norm trajectory (paper Sec 4, ``core/controller.py``
-``AdaptiveT``; on a lossy network the cost ratio is repriced by the
-exchange's delivery rate). Each round prints its participation (the
-delivered fraction of its transmissions). Round times are fenced with
-``torch.cuda.synchronize()``.
-The flags are the reference launcher's that the port covers; its other
-flags are refused with the ROADMAP.md item that will port them.
+need ``--packed``, as in the reference. ``--adaptive-t`` refits T every
+round from the round's local gradient-norm trajectory (paper Sec 4,
+``core/controller.py`` ``AdaptiveT``; on a lossy network the cost ratio
+is repriced by the exchange's delivery rate); ``--adaptive-t online``
+(``OnlineT``) also re-estimates the cost ratio from the fenced phase
+times and scales T by the measured consensus contraction. Each round
+prints its participation (the delivered fraction of its
+transmissions).
+
+Every phase is fenced (``obs.Trace``: the devices of what it produced
+are synchronized before the clock is read), whether or not ``--trace``
+writes the JSONL records. On the packed round, ``--trace``,
+``--overlap`` and ``--adaptive-t online`` first calibrate the
+exchange-time split (``calibrate_fences``), so each round also records
+``exchange_exposed`` and ``exchange_total``. ``--profile <dir>`` writes
+a Chrome trace of the rounds (or steps) under ``<dir>``. The flags are
+the reference launcher's that the port covers; its other flags are
+refused with the ROADMAP.md item that will port them.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import gc
 import math
-import time
 
 import torch
 
 from repro_torch import comm as comm_mod
-from repro_torch import optim, tree
+from repro_torch import obs, optim, tree
 from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.configs.base import get_config
 from repro_torch.core import localsgd as lsgd
-from repro_torch.core.controller import AdaptiveT
+from repro_torch.core.controller import AdaptiveT, OnlineT
 from repro_torch.data.synthetic import TokenPipeline
 from repro_torch.models.api import build_model
 from repro_torch.optim import packing
@@ -61,8 +76,6 @@ from repro_torch.optim import packing
 _NOT_PORTED = {
     "--shard": "sharding/shardexec.py -> torch.distributed",
     "--hop-impl": "sharding/shardexec.py -> torch.distributed",
-    "--trace": "telemetry",
-    "--profile": "telemetry",
 }
 
 
@@ -136,6 +149,43 @@ def _model_and_opt(arch, reduced, packed, opt, lr, impl, seed, device):
     return cfg, model, params, layout, optimizer
 
 
+def calibrate_fences(loss_fn, opt, lcfg, layout, exchange, params, batch):
+    """The two references ``obs.exchange_phases`` derives the honest
+    exchange-time split from (DESIGN.md §14): the SAME packed round built
+    with comm='none' gives the pure-local-compute time, and (in overlap
+    mode) the barrier variant of the same exchange gives the standalone
+    exchange cost. Each round runs from its own fresh ``init_state`` of
+    ``params`` (the live run's buffers, noise counters and fault rounds
+    are never touched): one warm-up (the kernel library's load and the
+    first use of the device), then the best of two fenced rounds.
+    Returns ``(local_ref_per_step_s, exch_ref_s)``; the local reference
+    scales linearly in T, so one calibration covers the whole run."""
+    n_groups = lcfg.n_groups
+
+    def best_round_s(exch):
+        rnd = lsgd.make_local_round(loss_fn, opt, lcfg, layout=layout,
+                                    exchange=exch)
+        st = lsgd.init_state(params, opt, n_groups, layout, exchange=exch)
+        best = float("inf")
+        for i in range(3):
+            with obs.PhaseTimer() as t:
+                st, _ = t(rnd(st, batch))
+            if i:
+                best = min(best, t.seconds)
+        return best
+
+    local_ref_s = best_round_s(comm_mod.get_exchange("none", "fp32",
+                                                     n_groups))
+    exch_ref_s = 0.0
+    if exchange.overlap:
+        barrier = dataclasses.replace(exchange, overlap=False)
+        exch_ref_s = max(0.0, best_round_s(barrier) - local_ref_s)
+    gc.collect()
+    if batch["tokens"].is_cuda:
+        torch.cuda.empty_cache()
+    return local_ref_s / max(lcfg.inner_steps, 1), exch_ref_s
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="paper-lenet")
@@ -155,10 +205,14 @@ def main(argv=None) -> None:
     ap.add_argument("--adaptive-t", nargs="?", const="static", default="",
                     choices=["static", "online"],
                     help="T controller: 'static' (bare --adaptive-t: the "
-                         "Sec-4 fit from the round's decay trajectory); "
-                         "'online' is not ported yet")
+                         "Sec-4 fit from the round's decay trajectory) or "
+                         "'online' (DESIGN.md §14: re-estimates the cost "
+                         "ratio from fenced phase times and scales T by "
+                         "the measured consensus contraction each round)")
     ap.add_argument("--cost-ratio", type=float, default=0.01,
-                    help="r = C_g/C_c for the adaptive controller")
+                    help="r = C_g/C_c for the adaptive controller (online "
+                         "mode uses it as the prior and refines it from "
+                         "measured phase times)")
     ap.add_argument("--opt", default="sgd",
                     choices=["sgd", "momentum", "adamw"])
     ap.add_argument("--packed", action="store_true",
@@ -235,6 +289,14 @@ def main(argv=None) -> None:
                     help="save the averaged server params here (npz + json, "
                          "no extension) for repro_torch.launch.serve "
                          "--from-checkpoint")
+    ap.add_argument("--trace", default="",
+                    help="write phase-fenced JSONL round records here "
+                         "(DESIGN.md §13); summarize or check them with "
+                         "PYTHONPATH=src python -m repro_torch.obs.report")
+    ap.add_argument("--profile", default="",
+                    help="write a Chrome trace (torch.profiler; CPU and, on "
+                         "a CUDA device, CUDA activity) of the rounds under "
+                         "this directory")
     args, unknown = ap.parse_known_args(argv)
     for tok in unknown:
         flag = tok.split("=")[0]
@@ -243,9 +305,6 @@ def main(argv=None) -> None:
                      f"{_NOT_PORTED[flag]})")
     if unknown:
         ap.error(f"unrecognized arguments: {' '.join(unknown)}")
-    if args.adaptive_t == "online":
-        ap.error("--adaptive-t online is not ported yet (ROADMAP.md Queue A, "
-                 "telemetry: OnlineT needs the fenced exchange phases)")
     if args.mode == "sync" and (args.comm != "server" or args.codec != "fp32"
                                 or args.moment_codec != "fp32"
                                 or args.downlink_codec or args.overlap
@@ -269,30 +328,10 @@ def main(argv=None) -> None:
     if t_i and len(t_i) != args.groups:
         ap.error(f"--t-i needs {args.groups} entries, got {len(t_i)}")
 
-    def fence():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-
     common = dict(reduced=args.reduced, packed=args.packed, opt=args.opt,
                   lr=args.lr, impl=args.impl, seed=args.seed, device=device)
     if args.mode == "sync":
         cfg, model, layout, step, state = build_sync(args.arch, **common)
-        _header(cfg, model, args, device)
-        pipe = TokenPipeline(cfg.vocab_size, args.seq, seed=args.seed)
-        batches = pipe.batches((args.groups * args.per_group,))
-        for n in range(args.rounds):
-            batch = {"tokens": torch.as_tensor(next(batches)["tokens"],
-                                               device=device)}
-            fence()
-            t0 = time.perf_counter()
-            state, m = step(state, batch)
-            fence()
-            if n % args.log_every == 0:
-                print(f"step {n:4d} loss {float(m['loss']):.4f} "
-                      f"gsq {float(m['grad_sq']):.3e} "
-                      f"({time.perf_counter() - t0:.2f}s)")
-        final = (packing.unpack(state["params"], layout) if args.packed
-                 else state["params"])
     else:
         try:
             cfg, model, layout, rnd, state, lcfg, rebuild, exchange = \
@@ -312,56 +351,129 @@ def main(argv=None) -> None:
                     metrics="traj" if args.adaptive_t else "final", **common)
         except (NotImplementedError, ValueError) as e:
             ap.error(str(e))
-        _header(cfg, model, args, device)
+    n_params = sum(math.prod(d.shape) for d in tree.leaves(model.defs))
+    print(f"arch={cfg.name} params={n_params / 1e6:.1f}M mode={args.mode} "
+          f"{'packed' if args.packed else 'pytree'} device={device}")
+    # one Trace whether or not --trace is given: the null sink still
+    # fences every phase, so the printed times are honest
+    trace = obs.Trace(args.trace or None, meta={
+        "arch": cfg.name, "mode": args.mode, "groups": args.groups,
+        "t_inner": args.t_inner, "comm": args.comm, "codec": args.codec,
+        "rounds": args.rounds, "n_params": n_params,
+        "packed": bool(args.packed), "shard": 1,
+        "overlap": bool(args.overlap), "adaptive_t": args.adaptive_t,
+        "drop_rate": args.drop_rate, "stall_rate": args.stall_rate})
+    pipe = TokenPipeline(cfg.vocab_size, args.seq, seed=args.seed)
+
+    def batch_of(batches):
+        with trace.phase("data"):
+            return {"tokens": torch.as_tensor(next(batches)["tokens"],
+                                              device=device)}
+
+    if args.mode == "sync":
+        batches = pipe.batches((args.groups * args.per_group,))
+        with obs.profile_span(args.profile, device):
+            for n in range(args.rounds):
+                batch = batch_of(batches)
+                with trace.phase("step") as f:
+                    state, m = f(step(state, batch))
+                rec = trace.emit_round(n, m, kind="step")
+                if n % args.log_every == 0:
+                    print(f"step {n:4d} loss {float(m['loss']):.4f} "
+                          f"gsq {float(m['grad_sq']):.3e} "
+                          f"({rec['phase_s'].get('step', 0.0):.2f}s)")
+        final = (packing.unpack(state["params"], layout) if args.packed
+                 else state["params"])
+    else:
         # on a lossy network a useful round costs 1/delivery attempts'
-        # worth of link time: r shrinks and the controller's T grows
-        ctl = (AdaptiveT(r=args.cost_ratio * exchange.delivery_rate)
-               if args.adaptive_t else None)
+        # worth of link time: r shrinks and the controller's T grows; the
+        # online controller refines that prior from the calibrated fences
+        ctl = None
+        if args.adaptive_t == "online":
+            ctl = OnlineT(r=args.cost_ratio * exchange.delivery_rate)
+        elif args.adaptive_t:
+            ctl = AdaptiveT(r=args.cost_ratio * exchange.delivery_rate)
         t_cur = lcfg.inner_steps
-        pipe = TokenPipeline(cfg.vocab_size, args.seq, seed=args.seed)
+        # the exchange-time split calibrates against the packed round's
+        # uniform shape; pytree rounds skip it (the report's phase check
+        # holds only where the pair is present)
+        calibrate = args.packed and (args.overlap or bool(args.trace)
+                                     or args.adaptive_t == "online")
+        local_ref_step = exch_ref_s = 0.0
+        trace.meta.update({"comm": exchange.name,
+                           "delivery_rate": exchange.delivery_rate})
         batches = pipe.batches((args.groups, args.per_group))
         wire_total = 0
-        for n in range(args.rounds):
-            batch = {"tokens": torch.as_tensor(next(batches)["tokens"],
-                                               device=device)}
-            if ctl is not None and t_cur != lcfg.inner_steps:
-                # a new T: the controller's T for every group, no t_i and
-                # no threshold (as the reference launcher rebuilds it)
-                lcfg = lsgd.LocalSGDConfig(
-                    n_groups=args.groups, inner_steps=t_cur,
-                    max_inner=MAX_INNER, metrics=lcfg.metrics)
-                rnd = rebuild(lcfg)
-            fence()
-            t0 = time.perf_counter()
-            state, m = rnd(state, batch)
-            fence()
-            seconds = time.perf_counter() - t0
-            if ctl is not None and "grad_sq_traj" in m:
-                t_cur = ctl.update(m["grad_sq_traj"][0].cpu().numpy())
-            wire_total += int(m["wire_bytes"])
-            if n % args.log_every == 0:
-                print(f"round {n:4d} "
-                      f"loss {float(m['loss'].mean()):.4f} "
-                      f"gsq {float(m['grad_sq'].mean()):.3e} "
-                      f"T {int(m['inner_steps'].max())} "
-                      f"wire {int(m['wire_bytes']):,}B "
-                      f"part {float(m['participation']):.2f} "
-                      f"cons {float(m['consensus_sq'].mean()):.3e} "
-                      f"({seconds:.2f}s)")
+        with obs.profile_span(args.profile, device):
+            for n in range(args.rounds):
+                batch = batch_of(batches)
+                if calibrate and n == 0:
+                    local_ref_step, exch_ref_s = calibrate_fences(
+                        model.loss, optim.get(args.opt, args.lr, packed=True,
+                                              impl=args.impl),
+                        lcfg, layout, exchange,
+                        packing.unpack(state["params"][0], layout), batch)
+                    print(f"fences: local {local_ref_step!r} s a step, "
+                          f"exchange {exch_ref_s!r} s")
+                if ctl is not None and t_cur != lcfg.inner_steps:
+                    # a new T: the controller's T for every group, no t_i
+                    # and no threshold (as the reference launcher rebuilds)
+                    lcfg = lsgd.LocalSGDConfig(
+                        n_groups=args.groups, inner_steps=t_cur,
+                        max_inner=MAX_INNER, metrics=lcfg.metrics)
+                    rnd = rebuild(lcfg)
+                with trace.phase("round") as f:
+                    state, m = f(rnd(state, batch))
+                t_used = int(m["inner_steps"].max())
+                fences = None
+                if calibrate:
+                    fences = obs.exchange_phases(
+                        trace.phase_seconds("round"),
+                        local_ref_step * t_used, exch_ref_s,
+                        overlap=args.overlap)
+                    for k, v in fences.items():
+                        trace.add_phase(k, v)
+                if ctl is not None and "grad_sq_traj" in m:
+                    traj = m["grad_sq_traj"][0].cpu().numpy()
+                    if isinstance(ctl, OnlineT):
+                        t_cur = ctl.update(
+                            traj, t_used=t_used,
+                            local_s=(local_ref_step * t_used) or None,
+                            exchange_s=(fences or {}).get(
+                                "exchange_total") or None,
+                            consensus_pre=float(m["consensus_sq"].mean()),
+                            consensus_post=float(
+                                m["consensus_sq_post"].mean()),
+                            codec_err=sum(float(v.mean())
+                                          for k, v in m.items()
+                                          if k.startswith("codec_err/")))
+                    else:
+                        t_cur = ctl.update(traj)
+                rec = trace.emit_round(n, m)
+                wire_total += int(m["wire_bytes"])
+                if n % args.log_every == 0:
+                    print(f"round {n:4d} "
+                          f"loss {float(m['loss'].mean()):.4f} "
+                          f"gsq {float(m['grad_sq'].mean()):.3e} "
+                          f"T {t_used} "
+                          f"wire {int(m['wire_bytes']):,}B "
+                          f"part {float(m['participation']):.2f} "
+                          f"cons {float(m['consensus_sq'].mean()):.3e} "
+                          f"({rec['phase_s'].get('round', 0.0):.2f}s)")
         print(f"comm {exchange.name}: {wire_total:,} wire bytes over "
               f"{args.rounds} rounds")
         final = lsgd.server_params(state, layout)
     if args.checkpoint:
-        ckpt_io.save(args.checkpoint, final,
-                     metadata={"arch": cfg.name, "rounds": args.rounds,
-                               "mode": args.mode})
+        with trace.phase("checkpoint"):
+            ckpt_io.save(args.checkpoint, final,
+                         metadata={"arch": cfg.name, "rounds": args.rounds,
+                                   "mode": args.mode})
+        trace.emit("checkpoint", path=args.checkpoint,
+                   seconds=round(trace.take_phases()["checkpoint"], 6))
         print(f"checkpoint -> {args.checkpoint}.npz")
-
-
-def _header(cfg, model, args, device) -> None:
-    n = sum(math.prod(d.shape) for d in tree.leaves(model.defs))
-    print(f"arch={cfg.name} params={n / 1e6:.1f}M mode={args.mode} "
-          f"{'packed' if args.packed else 'pytree'} device={device}")
+    trace.close()
+    if args.trace:
+        print(f"trace -> {args.trace} ({trace.n_records} records)")
 
 
 if __name__ == "__main__":

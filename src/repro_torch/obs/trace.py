@@ -14,13 +14,14 @@ Sink format (one JSON object per line), the reference's:
   {"kind": ..., ...}                                      # other events
 
 ``Trace(path=None)`` is a null sink that still fences and times.
-(``exchange_phases`` and ``profile_span`` wait for ROADMAP.md Queue A
-item 6.)
+``exchange_phases`` derives the exchange-time split from two calibrated
+references, and ``profile_span`` dumps a Chrome trace of a region.
 """
 from __future__ import annotations
 
 import contextlib
 import json
+import os
 import time
 from pathlib import Path
 from typing import Any, Dict, Optional
@@ -166,3 +167,63 @@ class Trace:
     def __exit__(self, *exc):
         self.close()
         return False
+
+
+def exchange_phases(round_s: float, local_ref_s: float, exch_ref_s: float,
+                    *, overlap: bool) -> Dict[str, float]:
+    """The honest exchange-time split (DESIGN.md §14).
+
+    Fences inside a round cannot separate overlapped phases. Instead the
+    launcher calibrates two references ONCE — ``local_ref_s``: the same
+    round built with comm='none' (pure local compute), ``exch_ref_s``:
+    the exchange's standalone cost (the barrier round less the local
+    reference) — and derives per round:
+
+      exchange_exposed = max(0, round_s - local_ref_s)
+          the exchange time actually ON the critical path this round;
+      exchange_total   = the standalone exchange cost (overlap mode,
+          floored at exposed so noise never reports >100% hiding), or
+          == exposed for a barrier round (nothing is hidden by
+          construction).
+
+    Overlap efficiency = 1 - exposed/total. Where the delayed mixing
+    runs in the same CUDA stream as the local steps (the port's round),
+    exposed ≈ total and the efficiency is honestly ≈ 0."""
+    exposed = max(0.0, float(round_s) - float(local_ref_s))
+    total = max(float(exch_ref_s), exposed) if overlap else exposed
+    return {"exchange_exposed": exposed, "exchange_total": total}
+
+
+@contextlib.contextmanager
+def profile_span(path: Optional[str], device="cpu"):
+    """Wrap a region in ``torch.profiler.profile`` and write its Chrome
+    trace (Perfetto and ``chrome://tracing`` open it) as
+    ``<path>/profile_<pid>.pt.trace.json``; a no-op when ``path`` is
+    falsy. CPU activity always, CUDA activity too when ``device`` is a
+    CUDA device: there the profiler must record CUDA activity, or the
+    span raises rather than write a trace of the host alone."""
+    if not path:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    device = torch.device(device)
+    on_cuda = device.type == "cuda"
+    activities = [ProfilerActivity.CPU]
+    if on_cuda:
+        if ProfilerActivity.CUDA not in torch.profiler.supported_activities():
+            raise RuntimeError("profile_span: this torch's profiler cannot "
+                               "record CUDA activity (no CUPTI)")
+        activities.append(ProfilerActivity.CUDA)
+    out = Path(path)
+    out.mkdir(parents=True, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+        if on_cuda:
+            torch.cuda.synchronize(device)
+    if on_cuda and not any(e.device_type == torch.autograd.DeviceType.CUDA
+                           for e in prof.events()):
+        raise RuntimeError("profile_span: the profiler recorded no CUDA "
+                           "activity on " + str(device))
+    prof.export_chrome_trace(
+        str(out / f"profile_{os.getpid()}.pt.trace.json"))

@@ -37,7 +37,8 @@ def test_port_imports_without_jax():
             "import repro_torch, repro_torch.launch.train, "
             "repro_torch.core.localsgd, repro_torch.bridge, "
             "repro_torch.kernels.build, repro_torch.launch.serve, "
-            "repro_torch.serve, repro_torch.checkpoint.io; "
+            "repro_torch.serve, repro_torch.checkpoint.io, "
+            "repro_torch.obs.report; "
             "import torch; "
             "assert not torch.backends.cuda.matmul.allow_tf32; "
             "assert not torch.backends.cudnn.allow_tf32")
