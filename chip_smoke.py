@@ -159,7 +159,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    baseline, through the port's entry points on the card. The convex
    suite through ``repro_torch.core.reference.run_alg1`` at each figure's
    own settings (the ``FIG*`` constants, each naming its source line in
-   ``benchmarks/``; no cut): Fig 2a, 2b, 3, 5 (with the decay fit and the
+   ``benchmarks/``; no cut; phase 16 runs in the main process meanwhile): Fig 2a, 2b, 3, 5 (with the decay fit and the
    T* formulas) and 6-7, each figure's own ``pass`` expression required,
    its integer quantities, slopes, rates and wall time printed; Fig 2b's
    T=10 and threshold runs over 5 rounds on the card against the CPU
@@ -322,6 +322,40 @@ Phases, in order; any failure raises and the script exits non-zero:
    a local step (the T-8 probe included) and ``sq_norm_groups`` 2 + T a
    round; its rounds and ratio logged beside ``BENCH_overlap.json``'s.
 
+16. the vlm and audio families at their published widths and the
+   ring-cache decode, seed 0, run while phase 11's figure processes run
+   (they are host-bound; the script has 1200 s in all), so its times are
+   taken under their load. (d) first: flash at internvl2-1b's prefill
+   geometry (2, 14, 2, 1024, 64) bf16 (g 7) against its plain versions
+   (``BF16_REF``, ``BF16_STEP``), timed beside SDPA and its bound. Then,
+   the counts set to 0: (a) internvl2-1b (24 x 896, 14/2 heads, vocab
+   151,655, bf16 over f32 params) through ``launch.train.build_run``,
+   packed, server/fp32, G 2, T 4, 2 x 1024 tokens a group with 256 patch
+   embeddings a sequence (``add_modalities``): 2 adamw rounds and 1 sgd
+   round, each launching its update kernel T times and
+   ``sq_norm_groups`` twice, the last round of each also run with the
+   plain versions from a copy of its state (sgd bit-equal, adamw within
+   ``EW_TOL``); the trained params' forward on 2 x 1024 tokens with
+   patches under ``attn_impl="pallas"`` (24 flash launches) against
+   ``"blocked"``: in float32 within ``PATH_TOL``'s rtol of the largest
+   logit, in bfloat16 the flash path at most twice as far from the
+   float32 logits as the blocked path; a 64-step greedy text decode on a
+   ring of 48 slots in float32 and bfloat16 (``ring_decode_hold``: the
+   float32 steps within 5e-2 of the teacher-forced log-softmax, the
+   bfloat16 ones at most twice as far from the float32 teacher-forced as
+   the bfloat16 teacher-forced; past the window the ring holds the last
+   48 positions). (b) whisper-base (6 + 6 x 512, 1500 frames, vocab
+   51,865): packed sgd and adamw rounds at G 4, T 4, 2 x 448 tokens a
+   group over their frames (the same launch counts), then the launcher's
+   ``main`` on the pytree round (no launch) and ``--mode sync --packed``
+   (one ``fused_sgd`` and one ``sq_norm_groups``); 4 x 1500 frames
+   encoded, the cross caches filled with ``cross_attention_cache``, 32
+   greedy steps held as in (a). (c) paper-lenet's ring ``prefill`` of a
+   1024-token prompt under ``attn_impl="pallas"`` (8 flash launches)
+   against token-by-token ``decode_step`` over it (log-softmax within
+   5e-2, slot positions equal), then 8 greedy steps from each cache,
+   tokens equal. Each part's seconds and peak memory are logged.
+
 The line before the last is one JSON object with each kernel's numbers
 (the launches of phases 5 and 8 for the first eight, of phase 10's
 ``ops`` path for the last four; the update kernels and
@@ -331,7 +365,8 @@ The line before the last is one JSON object with each kernel's numbers
 ``family_launches``, and phase 14's ``tree_exchange_launches`` (the
 pytree runs: 0) and ``tree_exchange_packed_launches`` (their packed
 comparisons), and phase 15's ``telemetry_launches`` (its launcher
-processes and the headline), each path's own count; ``paged_decode_attention``
+processes and the headline), and phase 16's ``modality_launches``
+(parts (a)-(c)), each path's own count; ``paged_decode_attention``
 and ``mamba_chunk`` also carry ``device_ms``, the device's time alone at
 the shape of their ``ms``); the last line is ``{"ok": true, "device":
 {...}}``.
@@ -2343,9 +2378,10 @@ def fig67(torch, run_alg1, rounds_to, convex, np):
     return ok, s_all
 
 
-def convex_suite(torch):
+def convex_suite(torch, beside=None):
     """Phase 11, part 1: the convex figures through run_alg1 on the card,
-    and Fig 4 on the pytree round, each in a process of its own."""
+    and Fig 4 on the pytree round, each in a process of its own, with
+    ``beside()`` run here meanwhile."""
     import numpy as np
 
     from repro_torch.core import theory
@@ -2361,7 +2397,7 @@ def convex_suite(torch):
     _profiled(torch, "convex: fig2b threshold, 5 rounds", lambda: run_alg1(
         prob.local_losses("cuda"), torch.zeros(FIG2B["d"]), lr=FIG2B["lr"],
         T=None, rounds=5, threshold=FIG2B["eps"], device="cuda"))
-    results = _run_figures()
+    results = _run_figures(beside)
     log("convex suite wall s (the figures at once): " + ", ".join(
         f"fig{k} {s:.2f}" for k, (_, s) in results.items()))
     failed = [k for k, (ok, _) in results.items() if not ok]
@@ -2413,10 +2449,11 @@ def figure_main(name) -> int:
     return 0
 
 
-def _run_figures():
+def _run_figures(beside=None):
     """FIGURES at once, one process each (their output in temporary
-    files): {name: (pass, wall s)}. Fails if one fails; kills every
-    process still running when it stops."""
+    files), and ``beside()`` in this process while they run:
+    {name: (pass, wall s)}. Fails if one fails; kills every process still
+    running when it stops."""
     procs, outs = {}, {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_fig_") as tmp:
         try:
@@ -2426,6 +2463,8 @@ def _run_figures():
                     [sys.executable, os.path.abspath(__file__), "--figure",
                      name], cwd=ROOT, stdout=outs[name],
                     stderr=subprocess.STDOUT, text=True)
+            if beside is not None:
+                beside()
             results = {}
             for name, p in procs.items():
                 p.wait(timeout=1000)
@@ -2812,10 +2851,11 @@ def launcher_runs(torch):
         fail(f"launcher adaptive: T {ts}, expected 4 then the controller's")
 
 
-def phase11(torch, K):
+def phase11(torch, K, beside=None):
     """Phase 11: the convex suite, Fig 4, full-width threshold mode, the
     pytree round against the packed one, the packed microbatch round and
-    the sync-DP baseline, then the launcher. Returns the launches of the
+    the sync-DP baseline, then the launcher; ``beside()`` runs in this
+    process while the figures' processes run. Returns the launches of the
     microbatch round and of the packed sync steps, by path."""
     t0 = time.perf_counter()
 
@@ -2825,7 +2865,7 @@ def phase11(torch, K):
         log(f"phase 11 {name}: {time.perf_counter() - t:.1f} s")
         return out
 
-    part("convex suite and fig 4", lambda: convex_suite(torch))
+    part("convex suite and fig 4", lambda: convex_suite(torch, beside))
     part("threshold at full width", lambda: lenet_threshold(torch, K))
     part("pytree vs packed", lambda: pytree_vs_packed(torch))
     micro = part("microbatch round", lambda: microbatch_round(torch, K))
@@ -3825,12 +3865,13 @@ def _serve_trained(torch, arch, layers, ckpt, server, tmp):
     _check_attention(cfg, tally, before, fa, da)
 
 
-def _freed(torch, what):
+def _freed(torch, what, base=0.0):
     """Each model is freed before the next is built: nothing of it may
-    stay allocated on the card (reference cycles collected first)."""
+    stay allocated on the card (reference cycles collected first); at
+    most 1 GiB above ``base`` GiB."""
     gc.collect()
     torch.cuda.empty_cache()
-    held = torch.cuda.memory_allocated() / 2**30
+    held = torch.cuda.memory_allocated() / 2**30 - base
     if held > 1.0:
         live = sorted((o for o in gc.get_objects()
                        if type(o) is torch.Tensor and o.is_cuda),
@@ -4393,6 +4434,502 @@ def phase15(torch, K):
     return {"telemetry_launches": counts}
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the vlm and audio families and the ring-cache decode
+# ---------------------------------------------------------------------------
+
+# packed rounds at the published widths through launch.train.build_run,
+# server/fp32, T 4, seed 0: (arch, G, sequences a group, tokens a
+# sequence). internvl2-1b has 630,741,760 params, so the packed round's
+# 2**31 - 1 limit allows G <= 3 at full depth; whisper-base 97,562,112.
+MODAL_VLM = ("internvl2-1b", 2, 2, 1024)
+MODAL_AUDIO = ("whisper-base", 4, 2, 448)
+MODAL_T = 4
+MODAL_LR = {"sgd": 0.05, "adamw": 1e-3}
+VLM_DECODE = dict(B=2, W=48, steps=64)     # positions pass the ring
+AUDIO_DECODE = dict(B=4, steps=32)
+RING_PREFILL = dict(arch="paper-lenet", S=1024, new=8)
+NEXT_TOKEN = 5e-2            # tests/test_archs.py's log-softmax contract
+VLM_FLASH = (2, 14, 2, 1024, 64)           # (B, H, KV, S, hd), bf16
+MODAL_MEMORY = 0.8           # of the card, for phase 16's process
+
+
+def _peak_gib(torch):
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def _part_start(torch):
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return time.perf_counter()
+
+
+def _part_end(torch, name, t0):
+    torch.cuda.synchronize()
+    log(f"phase 16 {name}: {time.perf_counter() - t0:.1f} s, peak memory "
+        f"{_peak_gib(torch):.2f} GiB")
+
+
+def vlm_flash_hold(torch):
+    """Part (d): flash at internvl2-1b's prefill geometry, (2, 14, 2,
+    1024, 64) bf16 (g = 7), against its plain versions at phase 7's bf16
+    tolerances, timed (median of 20, the call's and the device's alone)
+    beside SDPA and its bound."""
+    from repro_torch.kernels import flash_attention as fa
+    B, H, KV, S, hd = VLM_FLASH
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    q = torch.randn((B, H, S, hd), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((B, KV, S, hd), generator=gen, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    tag = f"flash_attention internvl2-1b {VLM_FLASH} bf16"
+    got = fa.flash_attention(q, k, v, impl="cuda")
+    e1 = compare(tag + " (plain, bf16 p)", got.float(),
+                 fa.flash_attention(q, k, v, impl="torch").float(), **BF16_REF)
+    f32 = fa.flash_attention(q.float(), k.float(), v.float(),
+                             impl="torch").to(torch.bfloat16)
+    e2 = compare(tag + " (float32 plain)", got.float(), f32.float(),
+                 **BF16_STEP)
+    if not torch.equal(got, fa.flash_attention(q, k, v, impl="cuda")):
+        fail(f"{tag}: differs on a rerun")
+    kr, vr = (k.repeat_interleave(H // KV, 1), v.repeat_interleave(H // KV, 1))
+    t = call_and_device_ms(
+        torch, lambda: fa.flash_attention(q, k, v, impl="cuda"),
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, kr, vr, is_causal=True))
+    plain_ms = time_ms(lambda: fa.flash_attention(q, k, v, impl="torch"),
+                       torch)
+    nbytes = (2 * B * H + 2 * B * KV) * S * hd * 2
+    b_ms, b_by = bound_of(nbytes, 4 * hd * S * (S + 1) // 2 * B * H,
+                          BF16_OPS_PER_S)
+    log(f"{tag}: max abs err {e1:.3e} against the plain version (BF16_REF), "
+        f"{e2:.3e} against the float32 plain version (BF16_STEP); kernel_ms "
+        f"{t['ms']:.4f} (device {t['device_ms']:.4f}) bound_ms {b_ms:.4f} "
+        f"({b_by}: bf16 at {BF16_OPS_PER_S / 1e12:.0f} TFLOP/s) plain_ms "
+        f"{plain_ms:.4f} library_ms {t['library_ms']:.4f} (device "
+        f"{t['library_device_ms']:.4f}; sdpa causal, bf16)")
+    del q, k, v, kr, vr, got, f32
+    torch.cuda.empty_cache()
+
+
+def _modal_batch(torch, cfg, G, per_group, seq):
+    """Tokens (G, per_group, seq) and the launcher's modality inputs."""
+    import numpy as np
+    from repro_torch.data.synthetic import TokenPipeline
+    from repro_torch.launch import train
+    tokens = next(TokenPipeline(cfg.vocab_size, seq, seed=0).batches(
+        (G, per_group)))["tokens"]
+    return train.add_modalities(
+        {"tokens": torch.as_tensor(tokens, device="cuda")}, cfg,
+        np.random.RandomState(0))
+
+
+def modal_rounds(torch, K, spec, opt, rounds, hold_plain=False):
+    """``rounds`` packed rounds of ``spec`` (MODAL_VLM / MODAL_AUDIO) from
+    ``launch.train.build_run`` with the kernels: each round launches the
+    update kernel T times and ``sq_norm_groups`` twice and nothing else,
+    its losses finite (at init within LOSS_NEAR_LN_V of ln(padded
+    vocab)). With ``hold_plain`` the last round also runs with the plain
+    versions (``impl="torch"``, no launch) from a copy of the same state:
+    sgd bit-equal, adamw params and moments within EW_TOL; the kernel
+    round's state waits on the host meanwhile, so the card holds one
+    state and one copy (phase 16 runs beside phase 11's processes).
+    Returns (cfg, model, the server params, the batch)."""
+    from repro_torch import tree
+    from repro_torch.core import localsgd as lsgd
+    from repro_torch.launch import train
+
+    arch, G, per_group, seq = spec
+    tag = f"phase 16 {arch} G {G} {opt}"
+    cfg, model, layout, rnd, state, lcfg, _, exchange = train.build_run(
+        arch, groups=G, t_inner=MODAL_T, opt=opt, lr=MODAL_LR[opt],
+        device="cuda")
+    batch = _modal_batch(torch, cfg, G, per_group, seq)
+    ln_v = float(torch.log(torch.tensor(float(cfg.padded_vocab))))
+    with torch.no_grad():
+        loss0 = model.loss(lsgd.server_params(state, layout), tree.tree_map(
+            lambda x: x[0], batch)).item()
+    if not abs(loss0 - ln_v) <= LOSS_NEAR_LN_V:
+        fail(f"{tag}: the loss at init {loss0:.4f} is not near ln(padded "
+             f"vocab) = {ln_v:.4f}")
+    mods = {"fused_sgd": K.fused_sgd, "fused_adamw": K.fused_adamw,
+            "fused_momentum": K.fused_momentum, "sq_norm_groups": K.sq_norm,
+            "flash_attention": K.flash_attention}
+    for n in range(rounds):
+        plain = None
+        if hold_plain and n == rounds - 1:
+            plain = _copied(state)
+        before = {k: m.launches for k, m in mods.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = rnd(state, batch)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        got = {k: mod.launches - before[k] for k, mod in mods.items()}
+        want = dict.fromkeys(mods, 0)
+        want[f"fused_{opt}"], want["sq_norm_groups"] = MODAL_T, 2
+        if got != want:
+            fail(f"{tag} round {n}: launches {got}, expected {want}")
+        loss = m["loss"]
+        if loss.shape != (G,) or not bool(torch.isfinite(loss).all()) or \
+                not bool(torch.isfinite(state["params"]).all()):
+            fail(f"{tag} round {n}: loss {loss.tolist()} or params not "
+                 "finite")
+        log(f"{tag} round {n}: {sec:.4f} s fenced, loss "
+            f"{[round(x, 4) for x in loss.tolist()]} (at init {loss0:.4f}, "
+            f"ln padded vocab {ln_v:.4f}), N {layout.size:,}, peak memory "
+            f"{_peak_gib(torch):.2f} GiB")
+        if plain is not None:
+            state = _copied(state, "cpu")
+            torch.cuda.empty_cache()
+            _hold_plain_round(torch, tag, model, opt, lcfg, layout,
+                              exchange, plain, batch, state, mods)
+            del plain
+            torch.cuda.empty_cache()
+            state = _copied(state, "cuda")
+    server = lsgd.server_params(state, layout)
+    del state, rnd
+    gc.collect()
+    torch.cuda.empty_cache()
+    return cfg, model, server, batch
+
+
+def _copied(state, device=None):
+    """A copy of a round state (nested dicts of tensors, empty ones
+    kept), on ``device`` (default: where it is)."""
+    if isinstance(state, dict):
+        return {k: _copied(v, device) for k, v in state.items()}
+    return state.clone() if device is None else state.to(device)
+
+
+def _hold_plain_round(torch, tag, model, opt, lcfg, layout, exchange,
+                      start, batch, kernel_state, mods):
+    """The same round with the plain versions, from ``start``, against
+    ``kernel_state`` (on the host), tensor by tensor on the card."""
+    from repro_torch import optim
+    from repro_torch.core import localsgd as lsgd
+    before = {k: m.launches for k, m in mods.items()}
+    rnd = lsgd.make_local_round(
+        model.loss, optim.get(opt, MODAL_LR[opt], packed=True, impl="torch"),
+        lcfg, layout=layout, exchange=exchange)
+    plain, _ = rnd(start, batch)
+    if any(m.launches != before[k] for k, m in mods.items()):
+        fail(f"{tag}: the plain round launched a kernel")
+    pairs = [("params", kernel_state["params"], plain["params"])]
+    pairs += [(k, kernel_state["opt"][k], plain["opt"][k])
+              for k in ("m", "v") if k in plain["opt"]]
+    errs = {}
+    for name, got, want in pairs:
+        got = got.to(want.device)
+        if opt == "sgd":
+            if not torch.equal(got, want):
+                fail(f"{tag}: the kernel round's {name} differ from the "
+                     "plain round's (sgd: bit-equal expected), max abs "
+                     f"{(got - want).abs().max().item():.3e}")
+            errs[name] = 0.0
+        else:
+            errs[name] = compare(f"{tag} {name}, kernels against plain",
+                                 got, want, **EW_TOL)
+    log(f"{tag}: the round with the kernels against the plain versions "
+        f"from the same state: max abs err {errs}")
+
+
+def vlm_part(torch, K):
+    """Part (a): internvl2-1b at full width (24 x 896, 14/2 heads, vocab
+    151,655, bf16 over f32 params): 2 adamw and 1 sgd packed rounds, the
+    last of each held against the plain versions; the trained params'
+    forward with patches under ``attn_impl="pallas"`` against
+    ``"blocked"`` (``vlm_flash_forward``); a 64-token greedy text decode
+    on a ring of 48 slots (``ring_decode_hold``)."""
+    base = torch.cuda.memory_allocated() / 2**30
+    modal_rounds(torch, K, MODAL_VLM, "adamw", 2, hold_plain=True)
+    _freed(torch, "internvl2-1b adamw rounds", base)
+    cfg, _, params, batch = modal_rounds(torch, K, MODAL_VLM, "sgd", 1,
+                                         hold_plain=True)
+    one = {"tokens": batch["tokens"][0], "patches": batch["patches"][0]}
+    with torch.inference_mode():
+        vlm_flash_forward(torch, cfg, params, one)
+        ring_decode_hold(torch, cfg, params, one["tokens"][:, :1],
+                         VLM_DECODE["steps"], VLM_DECODE["W"],
+                         "internvl2-1b")
+    del params, batch, one
+
+
+def vlm_flash_forward(torch, cfg, params, batch):
+    """The trained internvl2-1b's forward on ``batch`` with patches under
+    ``attn_impl="pallas"`` (one flash launch a layer) against
+    ``"blocked"``, in float32 (the kernel's 3xTF32 against the plain
+    path, within PATH_TOL's rtol of the largest logit: a logit near 0
+    keeps the rounding of the large terms it sums, through 24 layers) and
+    in bfloat16, the config's. In bfloat16 the
+    two paths round apart by a bfloat16 step a layer, which 24 layers of
+    a bfloat16 residual stream carry into the logits, so each is held
+    against the float32 forward: the flash path's error may be at most
+    twice the blocked path's own."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.api import build_model
+
+    logits = {}
+    for dt in ("float32", "bfloat16"):
+        for impl in ("blocked", "pallas"):
+            model = build_model(dataclasses.replace(cfg, dtype=dt,
+                                                    attn_impl=impl))
+            before = fa.launches
+            logits[dt, impl] = model.logits(params, batch)
+            n_flash = fa.launches - before
+            want = cfg.n_layers if impl == "pallas" else 0
+            if n_flash != want or not bool(
+                    torch.isfinite(logits[dt, impl]).all()):
+                fail(f"internvl2-1b {dt} {impl} forward: {n_flash} flash "
+                     f"launches (expected {want}), or logits not finite")
+    f32 = logits["float32", "blocked"]
+    scale = f32.abs().max().item()
+    e32 = compare("internvl2-1b float32 logits, pallas against blocked",
+                  logits["float32", "pallas"], f32, rtol=0.0,
+                  atol=PATH_TOL["rtol"] * scale)
+    e_flash = (logits["bfloat16", "pallas"] - f32).abs().max().item()
+    e_plain = (logits["bfloat16", "blocked"] - f32).abs().max().item()
+    e_pair = (logits["bfloat16", "pallas"]
+              - logits["bfloat16", "blocked"]).abs().max().item()
+    if not e_flash <= 2 * e_plain:
+        fail(f"internvl2-1b bfloat16 logits: the flash path is "
+             f"{e_flash:.3e} from the float32 forward, more than twice the "
+             f"blocked path's {e_plain:.3e}")
+    log(f"internvl2-1b forward on {tuple(batch['tokens'].shape)} tokens "
+        f"with {tuple(batch['patches'].shape)} patches, {cfg.n_layers} "
+        f"flash launches a pallas forward: float32 logits pallas against "
+        f"blocked max abs {e32:.3e} (bound {PATH_TOL['rtol'] * scale:.3e}); "
+        f"bfloat16: pallas "
+        f"{e_flash:.3e} and blocked {e_plain:.3e} from the float32 logits "
+        f"(max |logit| {scale:.3f}), {e_pair:.3e} apart")
+
+
+def _ring_run(torch, model, params, cache, first, steps, feed=None):
+    """``decode_step`` at positions 0..steps-1 from ``cache``: token 0 is
+    ``first`` (B, 1), each next one the argmax over the vocab (greedy) or
+    ``feed[:, t]``. Returns (tokens (B, steps), log-softmax (B, steps,
+    V), the cache, seconds)."""
+    vocab = model.cfg.vocab_size
+    tok, toks, logps = first.to(torch.int32), [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for pos in range(steps):
+        logits, cache = model.decode_step(params, cache, tok, pos)
+        toks.append(tok)
+        logps.append(torch.log_softmax(logits[:, 0], -1))
+        tok = (logits[:, :, :vocab].argmax(-1).to(torch.int32) if feed is None
+               else feed[:, pos + 1:pos + 2])
+    torch.cuda.synchronize()
+    return (torch.cat(toks, 1), torch.stack(logps, 1), cache,
+            time.perf_counter() - t0)
+
+
+def ring_decode_hold(torch, cfg, params, first, steps, W, tag, frames=None):
+    """Greedy decode of ``steps`` tokens from ``first`` (B, 1) on a ring of
+    W slots (whisper: over the cross caches of ``frames``' encoder output,
+    filled with ``attention.cross_attention_cache``), in float32 and in
+    bfloat16, the configs' dtype (fed the float32 run's tokens). Every
+    step's log-softmax finite; past W the ring holds the last W
+    positions. Before the ring wraps, each step is held against the
+    teacher-forced ``Model.logits`` of the decoded sequence: in float32
+    within NEXT_TOKEN (the reference's float32 contract); in bfloat16 the
+    decode may be at most twice as far from the float32 teacher-forced
+    log-probabilities as the bfloat16 teacher-forced ones are (24 layers
+    of a bfloat16 residual stream carry a bfloat16 step a layer)."""
+    from repro_torch import tree
+    from repro_torch.models import attention as attn
+    from repro_torch.models.api import build_model
+
+    B, held = first.shape[0], min(steps, W)
+    runs = {}
+    for dt in ("float32", "bfloat16"):
+        model = build_model(dataclasses.replace(cfg, dtype=dt))
+        cache = model.init_cache(B, W, device="cuda")
+        batch = {}
+        if frames is not None:
+            enc = model.encode(params, frames)
+            ks, vs = zip(*(attn.cross_attention_cache(
+                tree.tree_map(lambda a: a[i], params["dec"]["cross_attn"]),
+                enc, cfg) for i in range(cfg.n_layers)))
+            cache["cross_k"], cache["cross_v"] = (torch.stack(ks),
+                                                  torch.stack(vs))
+            batch["frames"] = frames
+        feed = runs["float32"][0] if dt == "bfloat16" else None
+        toks, logps, cache, sec = _ring_run(torch, model, params, cache,
+                                            first, steps, feed)
+        if not bool(torch.isfinite(logps).all()):
+            fail(f"{tag} {dt} decode: logits not finite")
+        if "kv" in cache and steps > W:
+            slots = sorted(cache["kv"]["slot_pos"][0].tolist())
+            if slots != list(range(steps - W, steps)):
+                fail(f"{tag} {dt} decode: the ring holds positions {slots}")
+        batch["tokens"] = toks[:, :held]
+        forced = torch.log_softmax(model.logits(params, batch), -1)
+        runs[dt] = (toks, logps[:, :held], forced, sec)
+        log(f"{tag} {dt} decode: {steps} steps of {B} on a ring of {W} "
+            f"slots in {sec:.2f} s ({sec / steps * 1e3:.2f} ms a step)")
+    toks, dec32, forced32, _ = runs["float32"]
+    e32 = (dec32 - forced32).abs().max().item()
+    if not e32 < NEXT_TOKEN:
+        fail(f"{tag} float32 decode: log-softmax {e32:.3e} from the "
+             f"teacher-forced logits over the first {held} steps (contract "
+             f"{NEXT_TOKEN})")
+    _, dec16, forced16, _ = runs["bfloat16"]
+    e_dec = (dec16 - forced32).abs().max().item()
+    e_forced = (forced16 - forced32).abs().max().item()
+    e_pair = (dec16 - forced16).abs().max().item()
+    if not e_dec <= 2 * e_forced:
+        fail(f"{tag} bfloat16 decode: {e_dec:.3e} from the float32 "
+             f"teacher-forced log-softmax, more than twice the bfloat16 "
+             f"teacher-forced logits' {e_forced:.3e}")
+    log(f"{tag} decode, log-softmax over the first {held} steps: float32 "
+        f"{e32:.3e} from teacher-forced (contract {NEXT_TOKEN}); bfloat16 "
+        f"{e_dec:.3e} from the float32 teacher-forced (the bfloat16 "
+        f"teacher-forced {e_forced:.3e}), {e_pair:.3e} from the bfloat16 "
+        f"teacher-forced; greedy tokens {toks[0, :12].tolist()} ...")
+
+
+def audio_part(torch, K):
+    """Part (b): whisper-base at full width (6 + 6 x 512, 1500 frames,
+    vocab 51,865): a packed sgd round and an adamw round, one pytree round
+    and one sync step through the launcher's ``main``; then 4 x 1500
+    frames encoded, the cross caches filled, 32 greedy steps
+    (``ring_decode_hold``)."""
+    from repro_torch.launch import train
+
+    base = torch.cuda.memory_allocated() / 2**30
+    modal_rounds(torch, K, MODAL_AUDIO, "sgd", 1)
+    _freed(torch, "whisper-base sgd round", base)
+    cfg, _, params, batch = modal_rounds(torch, K, MODAL_AUDIO, "adamw", 1)
+    before = _all_counts(K)
+    arch, G, per_group, seq = MODAL_AUDIO
+    common = ["--device", "cuda", "--arch", arch, "--groups", str(G),
+              "--per-group", str(per_group), "--seq", str(seq), "--rounds",
+              "1", "--t-inner", str(MODAL_T)]
+    for extra in ([], ["--mode", "sync", "--packed"]):
+        t0 = time.perf_counter()
+        train.main(common + extra)
+        log(f"phase 16 whisper-base launcher {extra or ['pytree']}: "
+            f"{time.perf_counter() - t0:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+    launched = {k: v - before[k] for k, v in _all_counts(K).items()}
+    want = dict.fromkeys(launched, 0)
+    want.update(fused_sgd=1, sq_norm_groups=1)
+    if launched != want:
+        fail(f"whisper-base launcher runs: launches {launched}, expected "
+             f"{want} (the pytree round none, the sync step one each)")
+    B, steps = AUDIO_DECODE["B"], AUDIO_DECODE["steps"]
+    frames = batch["frames"].reshape(-1, cfg.n_frames, cfg.d_model)[:B]
+    first = batch["tokens"].reshape(-1, seq)[:B, :1]
+    with torch.inference_mode():
+        ring_decode_hold(torch, cfg, params, first, steps, steps,
+                         "whisper-base", frames=frames)
+    del params, batch, frames, first
+
+
+def ring_prefill_part(torch):
+    """Part (c): the ring-cache prefill of paper-lenet at full width (8 x
+    768, f32) under ``attn_impl="pallas"``: a 1024-token prompt (8 flash
+    launches) against token-by-token ``decode_step`` over it; then 8
+    greedy steps from each cache, tokens equal."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.synthetic import TokenPipeline
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.api import build_model
+
+    S, new = RING_PREFILL["S"], RING_PREFILL["new"]
+    cfg = dataclasses.replace(get_config(RING_PREFILL["arch"]),
+                              attn_impl="pallas")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    prompt = torch.as_tensor(next(TokenPipeline(cfg.vocab_size, S, seed=0)
+                                  .batches((1,)))["tokens"], device="cuda")
+    W = S + new
+    with torch.inference_mode():
+        before = fa.launches
+        t0 = time.perf_counter()
+        logits_pf, cache_pf = model.prefill(params, {"tokens": prompt}, W)
+        torch.cuda.synchronize()
+        t_pf = time.perf_counter() - t0
+        n_flash = fa.launches - before
+        if n_flash != cfg.n_layers:
+            fail(f"paper-lenet prefill: {n_flash} flash launches, expected "
+                 f"{cfg.n_layers}")
+        cache = model.init_cache(1, W, device="cuda")
+        t0 = time.perf_counter()
+        for t in range(S):
+            logits_st, cache = model.decode_step(params, cache,
+                                                 prompt[:, t:t + 1], t)
+        torch.cuda.synchronize()
+        t_st = time.perf_counter() - t0
+        err = (torch.log_softmax(logits_pf[:, 0], -1)
+               - torch.log_softmax(logits_st[:, 0], -1)).abs().max().item()
+        kv_err = max((cache_pf["kv"][k] - cache["kv"][k]).abs().max().item()
+                     for k in ("k", "v"))
+        if not err < NEXT_TOKEN or not torch.equal(
+                cache_pf["kv"]["slot_pos"], cache["kv"]["slot_pos"]):
+            fail(f"paper-lenet prefill against stepwise decode: log-softmax "
+                 f"{err:.3e} (contract {NEXT_TOKEN}) or slot positions "
+                 "differ")
+        runs = []
+        for c, lg in ((cache_pf, logits_pf), (cache, logits_st)):
+            tok, toks = lg[:, :, :cfg.vocab_size].argmax(-1).to(torch.int32), []
+            for pos in range(S, S + new):
+                toks.append(int(tok))
+                lg, c = model.decode_step(params, c, tok, pos)
+                tok = lg[:, :, :cfg.vocab_size].argmax(-1).to(torch.int32)
+            runs.append(toks)
+        if runs[0] != runs[1]:
+            fail(f"paper-lenet: the greedy continuation differs: from the "
+                 f"prefill {runs[0]}, from the stepwise cache {runs[1]}")
+    log(f"paper-lenet ring prefill of {S} tokens: {n_flash} flash launches, "
+        f"{t_pf:.3f} s; stepwise decode over the prompt {t_st:.2f} s "
+        f"({t_st / S * 1e3:.2f} ms a step); next-token log-softmax max abs "
+        f"{err:.3e}, K/V max abs {kv_err:.3e}; the greedy continuations "
+        f"equal: {runs[0]}")
+    del params, model, cache, cache_pf
+
+
+def phase16(torch, K):
+    """Phase 16: the vlm and audio families at full width and the
+    ring-cache decode. Returns the launches of parts (a)-(c), as
+    ``modality_launches``."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated() / 2**30
+    log(f"phase 16: {base:.2f} GiB allocated at its start")
+    # the figure processes of phase 11 share the card: this process's
+    # allocator returns cached blocks before it passes MODAL_MEMORY of it
+    torch.cuda.set_per_process_memory_fraction(MODAL_MEMORY)
+    try:
+        t0 = _part_start(torch)
+        vlm_flash_hold(torch)
+        _part_end(torch, "(d) flash at internvl2-1b's geometry", t0)
+        _zero_all_counts(K)
+        for name, part in (("(a) internvl2-1b", vlm_part),
+                           ("(b) whisper-base", audio_part),
+                           ("(c) paper-lenet ring prefill",
+                            lambda torch, K: ring_prefill_part(torch))):
+            t = _part_start(torch)
+            part(torch, K)
+            _freed(torch, name, base)
+            _part_end(torch, name, t)
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+    counts = _all_counts(K)
+    # (a) 2 adamw rounds and 1 sgd round, 24 flash launches in each of
+    # the float32 and bfloat16 forwards; (b) 1 sgd and 1 adamw round, the
+    # sync step; (c) 8 flash launches
+    want = dict.fromkeys(counts, 0)
+    want.update(fused_adamw=3 * MODAL_T, fused_sgd=2 * MODAL_T + 1,
+                sq_norm_groups=2 * 5 + 1, flash_attention=2 * 24 + 8)
+    if counts != want:
+        fail(f"phase 16 launches {counts}, expected {want}")
+    log(f"phase 16: {time.perf_counter() - t0:.1f} s; launches {counts}")
+    return {"modality_launches": counts}
+
+
 def _kernel_name(mangled):
     """A ptxas entry name, short: the kernel's name after its namespace
     and its raw template arguments (``paged_decode_kernel ILi64ELi1EE``:
@@ -4487,11 +5024,16 @@ def main() -> int:
         fail(f"the train and serve paths launched {off_path}")
     check_last_four(torch, results)
     counts.update(ops_path(torch))
-    by_path = phase11(torch, K)
+    # phase 16 runs on the card while phase 11's figure processes keep the
+    # host busy (they are host-bound), within the script's 1200 s
+    modal = {}
+    by_path = phase11(torch, K,
+                      beside=lambda: modal.update(phase16(torch, K)))
     by_path.update(phase12(torch, K))
     by_path.update(phase13(torch, K)[0])
     by_path.update(phase14(torch, K))
     by_path.update(phase15(torch, K))
+    by_path.update(modal)
 
     # again at the end, where a tail of the output still holds them
     log(built)

@@ -3,9 +3,7 @@
 ``ArchConfig`` keeps every field of the reference, so that ``reduced()``
 gives the same shapes in both packages. Each architecture has one module
 here with its published ``CONFIG`` (the paper's own models share
-``paper.py``). The vlm and audio architectures (``internvl2-1b``,
-``whisper-base``) raise until their model builders are ported
-(ROADMAP.md Queue A item 9b).
+``paper.py``).
 """
 from __future__ import annotations
 
@@ -21,8 +19,8 @@ def round_up(x: int, multiple: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     """A single architecture configuration (``family`` selects the
-    builder in ``repro_torch.models.api``: dense | moe | hybrid | ssm;
-    vlm and audio are refused there)."""
+    model in ``repro_torch.models.api.build_model``: dense | moe |
+    hybrid | ssm | vlm | audio)."""
 
     name: str
     family: str
@@ -115,7 +113,9 @@ class ArchConfig:
 _MODULE_FOR = {
     "phi3.5-moe-42b-a6.6b": "phi35_moe",
     "zamba2-7b": "zamba2",
+    "internvl2-1b": "internvl2",
     "granite-moe-1b-a400m": "granite_moe",
+    "whisper-base": "whisper",
     "llama3-405b": "llama3_405b",
     "qwen1.5-110b": "qwen15_110b",
     "xlstm-1.3b": "xlstm",
@@ -124,18 +124,11 @@ _MODULE_FOR = {
     "paper-mlp": "paper",
     "paper-lenet": "paper",
 }
-# the reference's vlm and audio architectures, not ported yet
-_NOT_PORTED = ("internvl2-1b", "whisper-base")
 
 
 def get_config(arch_id: str) -> ArchConfig:
-    if arch_id in _NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not ported yet: its family (vlm, audio) "
-            "needs the ring-cache decode and the modality frontends "
-            "(ROADMAP.md Queue A item 9b)")
     if arch_id not in _MODULE_FOR:
-        raise KeyError(f"unknown arch {arch_id!r}; ported: "
+        raise KeyError(f"unknown arch {arch_id!r}; known: "
                        f"{sorted(_MODULE_FOR)}")
     mod = importlib.import_module(
         f"repro_torch.configs.{_MODULE_FOR[arch_id]}")

@@ -27,6 +27,8 @@ sync-DP baseline) on one device (counterpart of
         --arch paper-mlp --reduced --packed --adaptive-t online \\
         --trace t.jsonl --profile prof            # telemetry
     PYTHONPATH=src python -m repro_torch.obs.report t.jsonl --check
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --arch whisper-base --reduced --packed    # frames beside the tokens
 
 Runs on ``cuda`` unless ``--device cpu`` is given; on ``cuda`` the
 packed updates, norms and exchange codecs launch the CUDA kernels of
@@ -41,7 +43,11 @@ is repriced by the exchange's delivery rate); ``--adaptive-t online``
 (``OnlineT``) also re-estimates the cost ratio from the fenced phase
 times and scales T by the measured consensus contraction. Each round
 prints its participation (the delivered fraction of its
-transmissions).
+transmissions). The vlm and audio architectures (``internvl2-1b``,
+``whisper-base``) get their stubbed frontends' inputs beside each
+batch's tokens (``add_modalities``: patch or frame embeddings from a
+numpy ``RandomState(seed)``, the reference launcher's draws bit for
+bit).
 
 Every phase is fenced (``obs.Trace``: the devices of what it produced
 are synchronized before the clock is read), whether or not ``--trace``
@@ -60,6 +66,7 @@ import dataclasses
 import gc
 import math
 
+import numpy as np
 import torch
 
 from repro_torch import comm as comm_mod
@@ -82,6 +89,20 @@ _NOT_PORTED = {
 # the threshold mode's cap on local steps a round (the reference
 # launcher's)
 MAX_INNER = 500
+
+
+def add_modalities(batch, cfg, rng):
+    """The reference launcher's stub frontend inputs: vlm patch or audio
+    frame embeddings (..., n_patches | n_frames, d_model) float32 from
+    ``rng`` (a numpy RandomState), on the tokens' device."""
+    lead = tuple(batch["tokens"].shape[:-1])
+    for family, key, n in (("vlm", "patches", cfg.n_patches),
+                           ("audio", "frames", cfg.n_frames)):
+        if cfg.family == family:
+            batch[key] = torch.as_tensor(
+                rng.randn(*lead, n, cfg.d_model).astype(np.float32),
+                device=batch["tokens"].device)
+    return batch
 
 
 def build_run(arch: str, *, reduced: bool = False, groups: int = 4,
@@ -364,11 +385,12 @@ def main(argv=None) -> None:
         "overlap": bool(args.overlap), "adaptive_t": args.adaptive_t,
         "drop_rate": args.drop_rate, "stall_rate": args.stall_rate})
     pipe = TokenPipeline(cfg.vocab_size, args.seq, seed=args.seed)
+    rng = np.random.RandomState(args.seed)
 
     def batch_of(batches):
         with trace.phase("data"):
-            return {"tokens": torch.as_tensor(next(batches)["tokens"],
-                                              device=device)}
+            return add_modalities({"tokens": torch.as_tensor(
+                next(batches)["tokens"], device=device)}, cfg, rng)
 
     if args.mode == "sync":
         batches = pipe.batches((args.groups * args.per_group,))

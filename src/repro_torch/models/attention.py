@@ -1,11 +1,19 @@
-"""GQA self attention for training, prefill and decode (counterpart of
-``repro/models/attention.py``): the unblocked path, the blocked causal
-online-softmax path (``rect`` and ``tri`` schedules) in plain PyTorch, and
-the ``attn_impl="pallas"`` branch, which runs the port's
-``flash_attention`` kernel (``kernels/flash_attention.py``; forward only,
-as in the reference). The serve decode step projects one token per slot
+"""GQA attention for training, prefill and decode (counterpart of
+``repro/models/attention.py``): the unblocked path (causal, or
+non-causal for whisper's encoder, and cross attention over another
+sequence), the blocked causal online-softmax path (``rect`` and ``tri``
+schedules) in plain PyTorch, and the ``attn_impl="pallas"`` branch,
+which runs the port's ``flash_attention`` kernel
+(``kernels/flash_attention.py``; forward only, as in the reference).
+
+Two decodes: the serve engine projects one token per slot
 (``project_qkv`` with (B, 1) positions) and attends over the paged pool
-through ``kernels/decode_attention.py``.
+through ``kernels/decode_attention.py``; ``Model.decode_step`` keeps the
+reference's ring-buffer cache (``decode_attention``: slot ``pos % W``,
+RoPE at absolute positions before caching, so a position past the
+window overwrites the oldest slot) in plain PyTorch, as the reference
+does, and whisper's cross attention reads fixed encoder K/V
+(``cross_attention_cache`` / ``cross_attention_decode``).
 """
 from __future__ import annotations
 
@@ -36,14 +44,16 @@ def attention_defs(cfg):
     return defs
 
 
-def project_qkv(p, x, cfg, positions):
-    """Self-attention projections with rotary embedding at ``positions``
-    ((1, S) for a sequence, (B, 1) for one decode token per slot).
-    Returns q (B,S,H,hd), k/v (B,S,KV,hd)."""
+def project_qkv(p, x, x_kv, cfg, positions, kv_positions, use_rope=True):
+    """Projections of the queries from x and the keys and values from
+    x_kv (x itself in self attention), with rotary embedding at
+    ``positions`` / ``kv_positions`` ((1, S) for a sequence, (B, 1) for
+    one decode token per slot) unless ``use_rope`` is off.
+    Returns q (B,Sq,H,hd), k/v (B,Sk,KV,hd)."""
     dt = x.dtype
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(dt))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(dt))
+    k = torch.einsum("bsd,dhk->bshk", x_kv, p["wk"].to(dt))
+    v = torch.einsum("bsd,dhk->bshk", x_kv, p["wv"].to(dt))
     if cfg.qkv_bias:
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
@@ -51,8 +61,9 @@ def project_qkv(p, x, cfg, positions):
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, kv_positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -77,10 +88,13 @@ def _gqa_out(probs, v):
     return out.reshape(B, Sq, KV * G, v.shape[-1])
 
 
-def full_attention(q, k, v, mask):
-    """Unblocked path. mask broadcastable to (Sq, Sk) bool, True = attend."""
+def full_attention(q, k, v, mask=None):
+    """Unblocked path (short sequences, the encoder, cross attention).
+    mask broadcastable to (Sq, Sk) bool, True = attend; None attends
+    everywhere."""
     s = _gqa_scores(q, k).to(torch.float32)
-    s = torch.where(mask, s, NEG_INF)
+    if mask is not None:
+        s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1).to(q.dtype)
     return _gqa_out(p, v)
 
@@ -144,23 +158,99 @@ def pallas_causal_attention(q, k, v, block: int, impl="auto"):
     return out.transpose(1, 2)
 
 
-def attention_forward(p, x, cfg, *, schedule="tri", block=512,
-                      return_kv=False, impl="auto"):
-    """x (B,S,D) -> (B,S,D) causal self attention, and with ``return_kv``
-    also the (k, v) it attended over (the serve prefill pages them).
-    The blocked path runs when the sequence holds at least two whole
-    blocks, through the flash kernel under ``attn_impl="pallas"``
-    (``impl`` picks the kernel or its plain version); otherwise the
-    unblocked one (the reference's branch condition)."""
+def attention_forward(p, x, cfg, *, causal=True, x_kv=None, use_rope=True,
+                      positions=None, kv_positions=None, schedule="tri",
+                      block=512, return_kv=False, impl="auto"):
+    """x (B,S,D) -> (B,S,D); cross attention over x_kv (B,Sk,D) when it
+    is given. With ``return_kv`` also the (k, v) it attended over (the
+    prefills cache them). Causal self attention runs blocked when the
+    sequence holds at least two whole blocks, through the flash kernel
+    under ``attn_impl="pallas"`` (``impl`` picks the kernel or its plain
+    version); everything else runs unblocked, causal or not (the
+    reference's branch condition)."""
     S = x.shape[1]
-    q, k, v = project_qkv(p, x, cfg, torch.arange(S, device=x.device)[None])
-    blocked = S % block == 0 and S // block >= 2
+    x_kv = x if x_kv is None else x_kv
+    Sk = x_kv.shape[1]
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None]
+    if kv_positions is None:
+        kv_positions = torch.arange(Sk, device=x.device)[None]
+    q, k, v = project_qkv(p, x, x_kv, cfg, positions, kv_positions, use_rope)
+    blocked = causal and S == Sk and S % block == 0 and S // block >= 2
     if blocked and cfg.attn_impl == "pallas" and S % min(block, 128) == 0:
         out = pallas_causal_attention(q, k, v, block, impl)
     elif blocked:
         out = blocked_causal_attention(q, k, v, block, schedule)
     else:
-        out = full_attention(q, k, v, torch.tril(torch.ones(
-            (S, S), dtype=torch.bool, device=x.device)))
+        mask = None
+        if causal:
+            mask = torch.ones((S, Sk), dtype=torch.bool,
+                              device=x.device).tril(Sk - S)
+        out = full_attention(q, k, v, mask)
     y = output_proj(p, out)
     return (y, (k, v)) if return_kv else y
+
+
+def kv_cache_shapes(cfg, batch: int, cache_len: int, dtype):
+    """{leaf: (shape, dtype)} of one layer's ring cache."""
+    kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    return {"k": ((batch, cache_len, kv, hd), dtype),
+            "v": ((batch, cache_len, kv, hd), dtype),
+            "slot_pos": ((cache_len,), torch.int32)}
+
+
+def init_kv_cache(cfg, batch: int, cache_len: int, dtype, device="cpu"):
+    """One layer's empty ring cache: zero K/V, every slot's absolute
+    position -1 (empty)."""
+    out = {k: torch.zeros(s, dtype=dt, device=device) for k, (s, dt) in
+           kv_cache_shapes(cfg, batch, cache_len, dtype).items()}
+    out["slot_pos"].fill_(-1)
+    return out
+
+
+def decode_attention(p, x, cfg, cache, pos):
+    """One-token decode over a ring cache of W slots. x (B,1,D); pos the
+    absolute position (an int). The token's K/V go to slot ``pos % W``
+    with RoPE applied at ``pos`` first, so overwriting the oldest slot
+    past the window is safe; slots whose position is -1 are masked.
+    Returns (y (B,1,D), the new cache); the old one is left as it was."""
+    B = x.shape[0]
+    W = cache["k"].shape[1]
+    pos = int(pos)
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q, k_new, v_new = project_qkv(p, x, x, cfg, positions, positions)
+    slot = pos % W
+    k, v = cache["k"].clone(), cache["v"].clone()
+    k[:, slot] = k_new[:, 0]
+    v[:, slot] = v_new[:, 0]
+    slot_pos = cache["slot_pos"].clone()
+    slot_pos[slot] = pos
+    s = _gqa_scores(q, k).to(torch.float32)              # (B,KV,G,1,W)
+    s = torch.where(slot_pos >= 0, s, NEG_INF)
+    probs = torch.softmax(s, dim=-1).to(x.dtype)
+    y = output_proj(p, _gqa_out(probs, v))
+    return y, {"k": k, "v": v, "slot_pos": slot_pos}
+
+
+def cross_attention_cache(p, enc_out, cfg):
+    """Cross-attention K/V of the encoder output (whisper), computed once
+    for a whole decode: (B, n_frames, KV, hd) each."""
+    dt = enc_out.dtype
+    k = torch.einsum("bsd,dhk->bshk", enc_out, p["wk"].to(dt))
+    v = torch.einsum("bsd,dhk->bshk", enc_out, p["wv"].to(dt))
+    if cfg.qkv_bias:
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
+    return k, v
+
+
+def cross_attention_decode(p, x, cfg, k, v):
+    """One token's cross attention over the fixed encoder K/V (no
+    RoPE). x (B,1,D) -> (B,1,D)."""
+    dt = x.dtype
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(dt)
+    s = _gqa_scores(q, k).to(torch.float32)
+    probs = torch.softmax(s, dim=-1).to(dt)
+    return output_proj(p, _gqa_out(probs, v))

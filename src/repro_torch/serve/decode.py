@@ -20,10 +20,12 @@ Per family:
              SHARED attention block; the prefill runs the same per-token
              core as the step, token by token (the recurrence is
              stepwise), so prefill and stepwise decode are bit-equal.
-  ssm        state rows only (no KV pages); the model's ``decode_fn`` is
-             the token core, the prefill likewise token by token.
-  vlm/audio  refused: their decode needs modality inputs outside the
-             token-slot contract.
+  ssm        state rows only (no KV pages); the model's ``decode_step``
+             (its ring-cache API, whose cache is the state alone) is the
+             token core, the prefill likewise token by token.
+  vlm/audio  refused, as in the reference: their decode needs modality
+             inputs outside the token-slot contract; drive them through
+             ``Model.decode_step`` (a static batch on a ring cache).
 
 The reference's prefill scans the whole padded bucket and masks the pad
 steps (their state is kept, their K/V go to the trash row); the port's
@@ -54,8 +56,6 @@ from repro_torch.kernels import IMPLS
 from repro_torch.models import api as mapi
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mam
-from repro_torch.models import mlp as mlpm
-from repro_torch.models import moe as moem
 from repro_torch.models import xlstm as xl
 from repro_torch.models.layers import rms_norm
 from repro_torch.optim.packing import Layout, layout_of, pack, unpack
@@ -208,13 +208,6 @@ def _dev(x, device, dtype=torch.int32):
     return torch.as_tensor(x, device=device).to(dtype)
 
 
-def _decode_ffn(p, h2, cfg):
-    """The decode step's feed-forward half on one token a slot."""
-    if cfg.is_moe:
-        return moem.moe_decode(p["moe"], h2, cfg)[0]
-    return mlpm.mlp_forward(p["mlp"], h2, cfg)
-
-
 def _token_places(pos, ps):
     """A decode token's (B, 1) positions, page block, in-page offset and
     the attended length, for every slot at position ``pos`` (B,)."""
@@ -229,7 +222,7 @@ def _attend_token(p, x, cfg, pool, rk, rv, places, active, attn_fn):
     ``_token_places``. Returns (B, 1, D)."""
     B = x.shape[0]
     positions, blk, off, lengths = places
-    q, k, v = attn.project_qkv(p, x, cfg, positions)
+    q, k, v = attn.project_qkv(p, x, x, cfg, positions, positions)
     write_token_kv(pool, rk, blk, off, k[:, 0].reshape(B, -1), active)
     write_token_kv(pool, rv, blk, off, v[:, 0].reshape(B, -1), active)
     a = attn_fn(q[:, 0], pool, rk, rv, lengths)
@@ -257,7 +250,8 @@ def _build_decoder_programs(model, geom, attn_fn, impl):
             x = x + _attend_token(p["attn"], rms_norm(x, p["norm1"], eps),
                                   cfg, pool, rk, rv, places, active,
                                   attn_fn)
-            x = x + _decode_ffn(p, rms_norm(x, p["norm2"], eps), cfg)
+            x = x + mapi._decode_ffn(p, rms_norm(x, p["norm2"], eps),
+                                     cfg)
         return mapi._logits(params, x, cfg), pool
 
     def prefill_logits(params, pool, tokens, length, rows_k, rows_v,
@@ -354,7 +348,8 @@ def _build_hybrid_programs(model, geom, attn_fn, layout):
 
 def _build_ssm_programs(model, layout):
     def token(params, pool, state, tokens, pos, rows_k, rows_v, active):
-        logits, state = model.decode_fn(params, state, tokens[:, None])
+        logits, state = model.decode_step(params, state, tokens[:, None],
+                                          pos)
         return logits[:, 0], state
 
     return _recurrent_programs("ssm", layout, token)

@@ -26,7 +26,7 @@ from repro.configs import base as jbase
 from repro.core import localsgd as jlsgd
 from repro.models import build_model as jbuild_model
 from repro.optim import packing as jpacking
-from repro_torch import bridge, optim
+from repro_torch import bridge, optim, tree
 from repro_torch.configs import base
 from repro_torch.core import localsgd as lsgd
 from repro_torch.data.synthetic import TokenPipeline
@@ -54,14 +54,23 @@ def test_configs_equal_reference(arch):
 
 
 def test_vlm_and_audio_still_refused():
+    """The vlm and audio architectures, refused until their port, now
+    build: configs equal to the reference's, and their models' param
+    trees the reference's, leaf for leaf. An unknown arch still raises."""
     for arch in ("internvl2-1b", "whisper-base"):
         assert jbase.get_config(arch).family in ("vlm", "audio")
-        with pytest.raises(NotImplementedError, match="Queue A item 9b"):
-            base.get_config(arch)
-    cfg = base.get_config("qwen3-32b").reduced()
+        assert dataclasses.asdict(base.get_config(arch)) == \
+            dataclasses.asdict(jbase.get_config(arch))
     for fam in ("vlm", "audio"):
-        with pytest.raises(NotImplementedError, match="Queue A item 9b"):
-            build_model(dataclasses.replace(cfg, family=fam))
+        cfg = dataclasses.replace(base.get_config("qwen3-32b").reduced(),
+                                  family=fam)
+        jcfg = dataclasses.replace(jbase.get_config("qwen3-32b").reduced(),
+                                   family=fam)
+        got = build_model(cfg).abstract()
+        want = jax.tree_util.tree_flatten_with_path(
+            jbuild_model(jcfg).abstract())[0]
+        assert [(p, tuple(v.shape)) for p, v in zip(*tree.flatten(got))] == \
+            [(tuple(k.key for k in p), tuple(v.shape)) for p, v in want]
     with pytest.raises(KeyError, match="unknown arch"):
         base.get_config("gpt-2")
 

@@ -18,7 +18,7 @@ import torch
 from repro.configs.base import get_config as jax_get_config
 from repro.models import build_model as jax_build_model
 from repro.optim import packing as jpacking
-from repro_torch import bridge
+from repro_torch import bridge, tree
 from repro_torch.configs.base import get_config
 from repro_torch.models.api import build_model
 from repro_torch.optim import packing
@@ -67,8 +67,8 @@ def test_unported_paths_raise():
     """attn_impl="pallas" runs its forward through the flash kernel's
     plain version (the same loss as the blocked path, rtol 1e-5); a
     gradient through it raises, since the kernel has no backward in
-    either package. The vlm and audio architectures and families are
-    refused."""
+    either package. The vlm and audio architectures and families build,
+    their configs and param trees those of the reference."""
     cfg = dataclasses.replace(get_config("paper-mlp").reduced(), **TINY,
                               attn_impl="pallas")
     model = build_model(cfg)
@@ -83,8 +83,14 @@ def test_unported_paths_raise():
         packing.value_and_flat_grad(model.loss, layout)(
             packing.pack(params, layout), batch)
     for arch in ("internvl2-1b", "whisper-base"):
-        with pytest.raises(NotImplementedError, match="Queue A item 9b"):
-            get_config(arch)
+        assert dataclasses.asdict(get_config(arch)) == \
+            dataclasses.asdict(jax_get_config(arch))
     for fam in ("vlm", "audio"):
-        with pytest.raises(NotImplementedError, match="family"):
-            build_model(dataclasses.replace(cfg, family=fam))
+        tcfg = dataclasses.replace(cfg, family=fam)
+        jcfg = dataclasses.replace(jax_get_config("paper-mlp").reduced(),
+                                   **TINY, attn_impl="pallas", family=fam)
+        assert {k: tuple(v.shape) for k, v in zip(*tree.flatten(
+            build_model(tcfg).abstract()))} == {
+            tuple(p.key for p in path): tuple(v.shape) for path, v in
+            jax.tree_util.tree_flatten_with_path(
+                jax_build_model(jcfg).abstract())[0]}

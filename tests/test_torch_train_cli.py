@@ -4,11 +4,13 @@ none. Decides nothing at import time: whether CUDA exists is read inside
 the test. The runs call the launchers' ``main`` in this process; a new
 interpreter runs only where a fresh one is the point (the default device
 read at start-up)."""
+import math
 import os
 import subprocess
 import sys
 import types
 
+import pytest
 import torch
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
@@ -111,6 +113,23 @@ def test_cli_runs_sync_mode_on_cpu(capsys):
         assert f"mode=sync {kind}" in out.stdout
 
 
+@pytest.mark.parametrize("arch", ["internvl2-1b", "whisper-base"])
+def test_cli_runs_the_vlm_and_audio_archs(arch, capsys):
+    """The vlm and audio reductions, their patch or frame embeddings
+    beside every batch's tokens: the packed round, the pytree round and
+    --mode sync, each with finite losses."""
+    for cmd, extra, head in ((CMD, [], "round "), (TREE_CMD, [], "round "),
+                             (CMD, ["--mode", "sync"], "step ")):
+        out = _inproc(["--device", "cpu", "--arch", arch] + extra, capsys,
+                      cmd)
+        assert out.returncode == 0, out.stderr
+        assert f"arch={arch}-reduced" in out.stdout
+        lines = _lines(out, head)
+        assert len(lines) == 2, out.stdout
+        assert all(math.isfinite(float(l.split(" loss ")[1].split()[0]))
+                   for l in lines), lines
+
+
 def test_cli_runs_threshold_on_the_pytree_round(capsys):
     """--threshold without --packed: T_i = inf, at most 500 steps a group
     (the reference launcher's max_inner)."""
@@ -198,8 +217,10 @@ def test_serve_cli_defaults_to_cuda_and_refuses_unported_archs():
     else:
         assert out.returncode != 0 and "CUDA" in out.stderr
         assert "requests" not in out.stdout
+    # the engine refuses the vlm family with the reference's message
     out = serve(["--device", "cpu", "--arch", "internvl2-1b"])
-    assert out.returncode != 0 and "not ported yet" in out.stderr
+    assert out.returncode != 0
+    assert "serve does not support family 'vlm'" in out.stderr
 
 
 def test_cli_runs_faults_tiers_and_overlap_on_cpu(capsys):
