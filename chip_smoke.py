@@ -356,6 +356,43 @@ Phases, in order; any failure raises and the script exits non-zero:
    5e-2, slot positions equal), then 8 greedy steps from each cache,
    tokens equal. Each part's seconds and peak memory are logged.
 
+17. sharded execution (``repro_torch.sharding``), run after phase 16
+   while phase 11's figure processes run: paper-lenet at full
+   width on a (G 4 x S 2) rank grid, N = 124,662,528 padded to
+   124,662,784 (``packing.shard_layout``, a shard of 62,331,392), 8 rank
+   processes on ``cuda:0`` joined over gloo, every collective through
+   the ranks' CUDA IPC mailboxes on the card (the ``cuda-ipc``
+   transport; NCCL refuses two ranks on one card), T 4, 2 x 128 tokens
+   a group, 2 rounds a run: server fp32 sgd, momentum and adamw; adamw
+   with int8 params; ring int8 at 2 hops with the ppermute hop and with
+   the allgather hop; gossip bf16 momentum; top-k sgd; async_stale int8
+   sgd; ``FAULT_PLAN``'s faulty server (momentum, int8/int8z, drop 0.1)
+   and its push_sum sgd (drop 0.05, stall 0.02). Each run first runs
+   unsharded in this process on the same ``ShardedLayout`` (the port's
+   packed round on the card), its buffers and metrics written to a
+   temporary directory; each rank then reads its own block of them and
+   holds its block, relative to the stream's largest element: a
+   lossless (fp32) exchange every element within ``SHARD_REL`` (1e-5);
+   a lossy one (int8, int8z, bf16, top-k: a last-bit difference of the
+   mean's summation order can move a codec's rounding by a quantum) at
+   most ``SHARD_OFF`` of the elements past 1e-5 and every element
+   within ``SHARD_LOSSY``; the control, the block held one element
+   over, must fail the same hold. The loss and grad_sq at rtol 1e-4
+   (lossy: 2e-3), wire bytes and participation exactly. The counts are
+   set to 0 in each rank before each run and read after it: each rank
+   launches its update kernel T times a round, ``sq_norm_groups`` 2 + T
+   times (traj metrics; +1 for top-k's residual), ``qdq_int8`` once per
+   int8 stream and hop, and ``codec_mix`` never (``shard_launches``,
+   summed over the ranks). Each rank's fenced round seconds and its
+   seconds in collectives are logged. A rank's failure fails the phase.
+   Then the launcher as a user starts it, ``python -m
+   repro_torch.launch.train --arch paper-lenet --packed --groups 4
+   --shard 2`` (2 rounds, T 4, 2 x 128 tokens, ``--trace`` and
+   ``--checkpoint``) in a fresh process beside the same launcher
+   without ``--shard``: the round lines agree to their printed digits,
+   the trace passes the port's check, the checkpoints (gathered to
+   rank 0) agree within rtol 1e-5.
+
 The line before the last is one JSON object with each kernel's numbers
 (the launches of phases 5 and 8 for the first eight, of phase 10's
 ``ops`` path for the last four; the update kernels and
@@ -366,7 +403,9 @@ The line before the last is one JSON object with each kernel's numbers
 pytree runs: 0) and ``tree_exchange_packed_launches`` (their packed
 comparisons), and phase 15's ``telemetry_launches`` (its launcher
 processes and the headline), and phase 16's ``modality_launches``
-(parts (a)-(c)), each path's own count; ``paged_decode_attention``
+(parts (a)-(c)), and the update kernels, ``sq_norm_groups``,
+``codec_mix`` and ``qdq_int8`` phase 17's ``shard_launches`` (summed
+over its 8 ranks), each path's own count; ``paged_decode_attention``
 and ``mamba_chunk`` also carry ``device_ms``, the device's time alone at
 the shape of their ``ms``); the last line is ``{"ok": true, "device":
 {...}}``.
@@ -377,6 +416,7 @@ import dataclasses
 import gc
 import json
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -4930,6 +4970,411 @@ def phase16(torch, K):
     return {"modality_launches": counts}
 
 
+# Phase 17: sharded execution at paper-lenet's full width on (G 4 x S 2),
+# traj metrics (a step's gradient norm comes from the shard's gradient, so
+# no fifth params gather a round for a final evaluation)
+SHARD_GRID = (4, 2)
+SHARD_T = 4
+SHARD_ROUNDS = 2
+SHARD_REL = 1e-5                 # the CPU tests' relative tolerance
+# a lossy stream (int8, int8z, bf16, top-k): a last-bit difference of the
+# mean's summation order can move a codec's rounding by a quantum. The
+# share of elements past SHARD_REL and the largest error, of the stream's
+# largest element: the card read at most 2.0e-5 and 3.0e-5 (top-k; a
+# share of 1.4e-4 under a gloo all_reduce's summation order), the control
+# at least 0.20 and 5.5e-2 (PERF.md, PR 25)
+SHARD_OFF = 1e-3
+SHARD_LOSSY = 1e-3
+# each run: optimizer, lr, the exchange (launcher flags; fault seed 1, as
+# phase 12), the hop collective, and per round the launches of qdq_int8
+# and the error-feedback residuals sq_norm_groups reduces
+SHARD_PLAN = [
+    dict(name="sgd", opt="sgd", lr=0.05),
+    dict(name="momentum", opt="momentum", lr=0.05),
+    dict(name="adamw", opt="adamw", lr=1e-3),
+    dict(name="adamw int8", opt="adamw", lr=1e-3, codec="int8", qdq_int8=1),
+    dict(name="ring int8 ppermute", opt="sgd", lr=0.05, comm="ring",
+         codec="int8", mix_rounds=2, qdq_int8=2),
+    dict(name="ring int8 allgather", opt="sgd", lr=0.05, comm="ring",
+         codec="int8", mix_rounds=2, qdq_int8=2, hop_impl="allgather"),
+    dict(name="gossip bf16 momentum", opt="momentum", lr=0.05, comm="gossip",
+         codec="bf16"),
+    dict(name="topk sgd", opt="sgd", lr=0.05, codec="topk", residuals=1),
+    dict(name="async_stale int8", opt="sgd", lr=0.05, comm="async_stale",
+         codec="int8", staleness=1, qdq_int8=1),
+    # FAULT_PLAN[2]'s exchange under momentum: adamw with int8z moments
+    # at eps 1e-8 diverges (phase 4), and a diverging run cannot be held
+    dict(FAULT_PLAN[2], name="faulty server", opt="momentum", lr=0.05,
+         qdq_int8=2),
+    dict(FAULT_PLAN[0], name="push_sum"),
+]
+SHARD_FLAGS = ("comm", "codec", "moment_codec", "mix_rounds", "staleness",
+               "drop_rate", "stall_rate")
+
+
+def _shard_exchange(run):
+    return dict({k: run[k] for k in SHARD_FLAGS if k in run}, fault_seed=1)
+
+
+def _shard_streams(run):
+    return ("params",) + {"sgd": (), "momentum": ("mu",),
+                          "adamw": ("m", "v")}[run["opt"]]
+
+
+def _shard_batches(torch, cfg, device):
+    from repro_torch.data.synthetic import TokenPipeline
+    pipe = TokenPipeline(cfg.vocab_size, 128, seed=0).batches(
+        (SHARD_GRID[0], 2))
+    return [{"tokens": torch.as_tensor(next(pipe)["tokens"], device=device)}
+            for _ in range(SHARD_ROUNDS)]
+
+
+def _shard_unsharded(torch, run, out_dir):
+    """One run unsharded on the card, on the sharded run's padded layout:
+    its buffers written raw (float32, (G, Np) row-major) and its metrics
+    as JSON, then the ``ready`` mark. Returns the round seconds."""
+    from repro_torch import comm
+    from repro_torch.core import localsgd as lsgd
+    from repro_torch.launch import train
+    from repro_torch.optim import packing
+
+    G, S = SHARD_GRID
+    cfg, model, params, layout, opt = train._model_and_opt(
+        "paper-lenet", False, True, run["opt"], run["lr"], "auto", 0,
+        torch.device("cuda"))
+    layout = packing.shard_layout(layout, S)
+    flags = _shard_exchange(run)
+    ex = comm.get_exchange(flags.pop("comm", "server"),
+                           flags.pop("codec", "fp32"), G, **flags)
+    rnd = lsgd.make_local_round(
+        model.loss, opt, lsgd.LocalSGDConfig(n_groups=G, inner_steps=SHARD_T,
+                                             metrics="traj"),
+        layout=layout, exchange=ex)
+    state = lsgd.init_state(params, opt, G, layout, exchange=ex)
+    del params
+    secs, metrics = [], []
+    for b in _shard_batches(torch, cfg, "cuda"):
+        t0 = _part_start(torch)
+        state, m = rnd(state, b)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        metrics.append({k: (v.tolist() if isinstance(v, torch.Tensor) else v)
+                        for k, v in m.items()})
+    amax = {}
+    for k in _shard_streams(run):
+        v = state["params"] if k == "params" else state["opt"][k]
+        amax[k] = float(v.abs().max())
+        v.cpu().numpy().tofile(os.path.join(out_dir, f"{k}.f32"))
+    del state, rnd, v
+    gc.collect()
+    torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, "ref.json"), "w") as f:
+        json.dump({"metrics": metrics, "amax": amax}, f)
+    open(os.path.join(out_dir, "ready"), "w").close()
+    return secs
+
+
+def _shard_wait(path, what, timeout=900.0):
+    t_end = time.monotonic() + timeout
+    while not os.path.exists(path):
+        if time.monotonic() > t_end:
+            fail(f"phase 17: {what} not there after {timeout:.0f} s")
+        time.sleep(0.2)
+
+
+def _shard_hold(tag, got, want, amax, exact):
+    """One rank's block against the unsharded run's, relative to the
+    stream's largest element, and the control: the block held one element
+    over (the least misplaced block), which the limits must refuse.
+    Returns (err / amax, share off, control err / amax, control share
+    off)."""
+    def reading(a, b):
+        diff = (a - b).abs_()
+        return (diff.max().item() / amax,
+                (diff > SHARD_REL * amax).double().mean().item())
+
+    def passes(err, off):
+        if exact:
+            return err <= SHARD_REL
+        return off <= SHARD_OFF and err <= SHARD_LOSSY
+
+    err, off = reading(got, want)
+    ctl_err, ctl_off = reading(got[1:], want[:-1])
+    if not passes(err, off):
+        fail(f"phase 17 {tag}: max abs err {err:.3e} of the largest element "
+             f"{amax:.3e}, {off:.4%} of the elements beyond {SHARD_REL} of "
+             "it")
+    if passes(ctl_err, ctl_off):
+        fail(f"phase 17 {tag}: the control (the block one element over) "
+             f"passes the hold ({ctl_err:.3e}, {ctl_off:.4%} off)")
+    return err, off, ctl_err, ctl_off
+
+
+def shard_rank(rank, world, ref_dir):
+    """One rank of phase 17: every run of ``SHARD_PLAN`` sharded, each
+    held against the unsharded run's buffers and metrics in ``ref_dir``.
+    Returns one record a run."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.kernels import (decode_attention,  # noqa: F401
+                                     exchange_epilogue, flash_attention,
+                                     fused_adamw, fused_momentum, fused_sgd,
+                                     mamba_scan, quantize, rmsnorm, sq_norm)
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import train
+    from repro_torch.sharding import shardexec as shx
+
+    G, S = SHARD_GRID
+    mesh = mesh_mod.make_local_mesh(G, S, "cuda")
+    if mesh.transport != "cuda-ipc" or mesh.device.type != "cuda":
+        fail(f"phase 17 rank {rank}: transport {mesh.transport} on "
+             f"{mesh.device}, expected cuda-ipc mailboxes on the card")
+    records = []
+    for i, run in enumerate(SHARD_PLAN):
+        # the card is either the unsharded run's or the ranks': run i
+        # starts once the unsharded run i has freed its memory
+        d = os.path.join(ref_dir, str(i))
+        _shard_wait(os.path.join(d, "ready"), f"run {i}'s unsharded buffers")
+        torch.cuda.reset_peak_memory_stats()
+        sexec = shx.plan_for(mesh, require=True,
+                             hop_impl=run.get("hop_impl", "ppermute"))
+        cfg, model, layout, rnd, state, _, _, _ = train.build_run(
+            "paper-lenet", groups=G, t_inner=SHARD_T, opt=run["opt"],
+            lr=run["lr"], device=mesh.device, shardexec=sexec,
+            metrics="traj", **_shard_exchange(run))
+        if layout.size != MAIN[1] or layout.padded != 124_662_784:
+            fail(f"phase 17: paper-lenet pads {layout.size} to "
+                 f"{layout.padded}")
+        _zero_all_counts(K)
+        secs, coll, metrics = [], [], []
+        for b in _shard_batches(torch, cfg, mesh.device):
+            torch.cuda.synchronize()
+            c0, t0 = mesh.seconds, time.perf_counter()
+            state, m = rnd(state, b)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            coll.append(mesh.seconds - c0)
+            metrics.append(m)
+        counts = _all_counts(K)
+        streams = _shard_streams(run)
+        bufs = {k: state["params"] if k == "params" else state["opt"][k]
+                for k in streams}
+        if any(not v.is_cuda for v in bufs.values()):
+            fail(f"phase 17 rank {rank} {run['name']}: a buffer left the card")
+        with open(os.path.join(d, "ref.json")) as f:
+            ref = json.load(f)
+        lossy = run.get("codec", "fp32") != "fp32" or "moment_codec" in run
+        lo, hi = sexec.bounds(layout)
+        errs = {}
+        for k, v in bufs.items():
+            want = np.fromfile(os.path.join(d, f"{k}.f32"), dtype=np.float32,
+                               count=hi - lo, offset=4 * (
+                                   sexec.group_index * layout.padded + lo))
+            errs[k] = _shard_hold(
+                f"rank {rank} {run['name']} {k}", v[0],
+                torch.from_numpy(want).to(v.device), ref["amax"][k],
+                exact=not lossy)
+        rtol = 2e-3 if lossy else 1e-4
+        for r, (m, m_ref) in enumerate(zip(metrics, ref["metrics"])):
+            for k in ("loss", "grad_sq"):
+                got_k = m[k].cpu().double()
+                want_k = torch.tensor(m_ref[k], dtype=torch.float64)
+                if not torch.allclose(got_k, want_k, rtol=rtol, atol=1e-6):
+                    fail(f"phase 17 rank {rank} {run['name']} round {r} {k}: "
+                         f"{got_k.tolist()} against {want_k.tolist()}")
+            for k, v in m_ref.items():
+                if (k.startswith("wire_bytes") or k == "participation") \
+                        and float(m[k]) != float(v):
+                    fail(f"phase 17 rank {rank} {run['name']} round {r} {k}: "
+                         f"{float(m[k])} against {v}")
+        want = dict.fromkeys(counts, 0)
+        want[f"fused_{run['opt']}"] = SHARD_T * SHARD_ROUNDS
+        want["sq_norm_groups"] = ((2 + SHARD_T + run.get("residuals", 0))
+                                  * SHARD_ROUNDS)
+        want["qdq_int8"] = run.get("qdq_int8", 0) * SHARD_ROUNDS
+        if counts != want:
+            fail(f"phase 17 rank {rank} {run['name']}: launches {counts}, "
+                 f"expected {want}")
+        open(os.path.join(d, f"done.{rank}"), "w").close()
+        records.append(dict(secs=secs, coll=coll, counts=counts, errs=errs,
+                            transport=mesh.transport,
+                            peak_gib=torch.cuda.max_memory_allocated() / 2**30))
+        del state, rnd, bufs, metrics, model, v
+        gc.collect()
+        torch.cuda.empty_cache()
+    return records
+
+
+# the launcher's sharded run, as a user starts it (README), held against
+# the unsharded launcher on the same flags
+SHARD_LAUNCH = ["--arch", "paper-lenet", "--packed", "--groups", "4",
+                "--rounds", "2", "--t-inner", "4", "--per-group", "2",
+                "--seq", "128"]
+
+
+def _launcher_rounds(out):
+    """(loss, gsq, T, wire, cons) of each printed round line."""
+    import re
+    pat = re.compile(r"round +\d+ loss (\S+) gsq (\S+) T (\d+) wire (\S+)B "
+                     r"part \S+ cons (\S+)")
+    got = [pat.match(line) for line in out.splitlines()
+           if line.startswith("round ")]
+    if len(got) != 2 or not all(got):
+        fail(f"phase 17 launcher: no 2 round lines in {out[-2000:]!r}")
+    return [(float(m[1]), float(m[2]), int(m[3]),
+             int(m[4].replace(",", "")), float(m[5])) for m in got]
+
+
+def shard_launcher(tmp):
+    """Phase 17's launcher part: ``train --shard 2`` in a fresh process
+    (it builds the libraries, starts its 8 ranks, calibrates the fences
+    for ``--trace``, and rank 0 gathers and saves the checkpoint) beside
+    the unsharded launcher. The round lines agree to their printed
+    digits (loss within 1e-4; grad_sq and consensus within 1e-3
+    relative, their fourth digit), T equal, the sharded wire the padded
+    buffer's; the trace passes the port's check with ``shard`` 2; the
+    checkpoints agree within rtol 1e-5 / atol 1e-6."""
+    import numpy as np
+
+    runs = {"sharded": ["--shard", "2", "--world-timeout", "300"],
+            "unsharded": []}
+    procs = {}
+    for k, extra in runs.items():
+        cmd = ([sys.executable, "-m", "repro_torch.launch.train"]
+               + SHARD_LAUNCH + extra
+               + ["--trace", os.path.join(tmp, f"{k}.jsonl"),
+                  "--checkpoint", os.path.join(tmp, k)])
+        log(f"phase 17 launcher {k}: {' '.join(cmd[3:])}")
+        procs[k] = subprocess.Popen(
+            cmd, cwd=ROOT, env=dict(os.environ, PYTHONPATH=SRC),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            start_new_session=True)
+    outs = {}
+    try:
+        for k, p in procs.items():
+            out, err = p.communicate(timeout=420)
+            for line in out.splitlines():
+                log(f"phase 17 launcher {k}: {line}")
+            if p.returncode != 0:
+                fail(f"phase 17 launcher {k} exited {p.returncode}: "
+                     f"{err[-3000:]}")
+            outs[k] = out
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.communicate()
+    if "transport cuda-ipc" not in outs["sharded"]:
+        fail("phase 17 launcher: the sharded run names no cuda-ipc transport")
+    got, want = (_launcher_rounds(outs[k]) for k in ("sharded", "unsharded"))
+    for r, (a, b) in enumerate(zip(got, want)):
+        if not (abs(a[0] - b[0]) <= 1e-4 and a[2] == b[2] and a[3] > b[3]
+                and all(abs(x - y) <= 1e-3 * abs(y) for x, y in
+                        ((a[1], b[1]), (a[4], b[4])))):
+            fail(f"phase 17 launcher round {r}: sharded (loss, gsq, T, wire, "
+                 f"cons) {a} against unsharded {b}")
+    meta, _, _ = _checked_trace("phase 17 sharded",
+                                os.path.join(tmp, "sharded.jsonl"))
+    if meta.get("shard") != 2:
+        fail(f"phase 17 launcher: the trace's meta says shard "
+             f"{meta.get('shard')}")
+    a = np.load(os.path.join(tmp, "sharded.npz"))
+    b = np.load(os.path.join(tmp, "unsharded.npz"))
+    if sorted(a.files) != sorted(b.files):
+        fail("phase 17 launcher: the checkpoints hold other leaves")
+    err = 0.0
+    for k in b.files:
+        x, y = a[k], b[k]
+        if x.shape != y.shape or not np.allclose(x, y, rtol=1e-5, atol=1e-6):
+            fail(f"phase 17 launcher: checkpoint leaf {k} differs")
+        err = max(err, float(np.abs(x - y).max()))
+    log(f"phase 17 launcher: rounds {got} against {want}; checkpoint max "
+        f"abs err {err:.3e}")
+
+
+def phase17(torch, K):
+    """Phase 17: the sharded packed round on 8 ranks sharing the card,
+    then the launcher's sharded run. Returns ``shard_launches`` (each
+    kernel's launches summed over the ranks and runs)."""
+    import threading
+
+    from repro_torch.launch import mesh as mesh_mod
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_start = time.perf_counter()
+    world = SHARD_GRID[0] * SHARD_GRID[1]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_shard_") as tmp:
+        for i in range(len(SHARD_PLAN)):
+            os.mkdir(os.path.join(tmp, str(i)))
+        box = {}
+
+        def ranks():
+            try:
+                box["records"] = mesh_mod.run_ranks(
+                    shard_rank, world, tmp, device_type="cuda", timeout=600.0)
+            except BaseException as e:          # noqa: BLE001 - re-raised
+                box["err"] = e
+
+        th = threading.Thread(target=ranks, daemon=True)
+        th.start()
+        # each unsharded run once the ranks have held the one before (the
+        # card holds one run at a time: the ranks and this process each
+        # take tens of GiB at paper-lenet's width); its buffers go then
+        for i, run in enumerate(SHARD_PLAN):
+            if i >= 1:
+                d = os.path.join(tmp, str(i - 1))
+                while th.is_alive() and not all(
+                        os.path.exists(os.path.join(d, f"done.{r}"))
+                        for r in range(world)):
+                    time.sleep(0.1)
+                for f in os.listdir(d):
+                    if f.endswith(".f32"):
+                        os.remove(os.path.join(d, f))
+            if not th.is_alive():
+                break
+            secs = _shard_unsharded(torch, run, os.path.join(tmp, str(i)))
+            log(f"phase 17 {run['name']}: unsharded rounds "
+                f"{[round(x, 3) for x in secs]} s")
+        th.join(660.0)
+        if "err" in box:
+            raise box["err"]
+        if "records" not in box:
+            fail("phase 17: the ranks did not finish")
+        log(f"phase 17 ranks: {time.perf_counter() - t_start:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_launch = time.perf_counter()
+        shard_launcher(tmp)
+        log(f"phase 17 launcher: {time.perf_counter() - t_launch:.1f} s")
+    total = {}
+    for i, run in enumerate(SHARD_PLAN):
+        recs = [r[i] for r in box["records"]]
+        log(f"phase 17 {run['name']} ({recs[0]['transport']}): fenced round "
+            "s by rank " + "; ".join(
+                f"{r}: {[round(x, 4) for x in rec['secs']]} (collectives "
+                f"{[round(x, 4) for x in rec['coll']]})"
+                for r, rec in enumerate(recs)))
+        log(f"phase 17 {run['name']}: by stream, over the 8 ranks: max err / "
+            "largest element, max share off; control (one element over): "
+            "min err / largest, min share off: " + ", ".join(
+                f"{k} {max(rec['errs'][k][0] for rec in recs):.3e} "
+                f"{max(rec['errs'][k][1] for rec in recs):.4e}; control "
+                f"{min(rec['errs'][k][2] for rec in recs):.3e} "
+                f"{min(rec['errs'][k][3] for rec in recs):.4e}"
+                for k in recs[0]["errs"])
+            + f"; launches a rank {recs[0]['counts']}; peak GiB by rank "
+            + str([round(rec["peak_gib"], 2) for rec in recs]))
+        for rec in recs:
+            for k, v in rec["counts"].items():
+                total[k] = total.get(k, 0) + v
+    log(f"phase 17: {time.perf_counter() - t_start:.1f} s; shard_launches "
+        f"{total}")
+    return {"shard_launches": total}
+
+
 def _kernel_name(mangled):
     """A ptxas entry name, short: the kernel's name after its namespace
     and its raw template arguments (``paged_decode_kernel ILi64ELi1EE``:
@@ -5024,16 +5469,24 @@ def main() -> int:
         fail(f"the train and serve paths launched {off_path}")
     check_last_four(torch, results)
     counts.update(ops_path(torch))
-    # phase 16 runs on the card while phase 11's figure processes keep the
-    # host busy (they are host-bound), within the script's 1200 s
-    modal = {}
-    by_path = phase11(torch, K,
-                      beside=lambda: modal.update(phase16(torch, K)))
+    # phases 16 and then 17 run on the card while phase 11's figure
+    # processes keep the host busy (they are host-bound), within the
+    # script's 1200 s; one after the other, as each takes a large share of
+    # the card
+    beside = {}
+
+    def modal_and_sharded():
+        beside.update(phase16(torch, K))
+        gc.collect()
+        torch.cuda.empty_cache()
+        beside.update(phase17(torch, K))
+
+    by_path = phase11(torch, K, beside=modal_and_sharded)
     by_path.update(phase12(torch, K))
     by_path.update(phase13(torch, K)[0])
     by_path.update(phase14(torch, K))
     by_path.update(phase15(torch, K))
-    by_path.update(modal)
+    by_path.update(beside)
 
     # again at the end, where a tail of the output still holds them
     log(built)

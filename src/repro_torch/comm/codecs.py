@@ -53,6 +53,9 @@ class Codec:
     # identity codecs skip the delta path entirely
     identity: bool = False
     stateful: bool = False
+    # element-wise (or chunk-local) on the wire: runs on one rank's shard
+    # of the buffer (``sharding/shardexec.py``)
+    shardable: bool = True
     impl: str = "auto"
     # chunked codecs (int8, int8z) expose their per-(rows, chunk) core:
     #   noise(count, rows_shape, device) -> u   (deterministic per count)

@@ -209,6 +209,21 @@ def _push_sum_hop(x, bl, a, act, shifts, incs, masks, codec):
 
 
 @dataclasses.dataclass(frozen=True)
+class PushSumRound:
+    """``Exchange.push_sum_round``: offsets, share ``a``, liveness ``act``
+    (G,), ``masks[h][di]`` and ``incs[h][di]`` (G,), the mass before
+    (``w0``) and after (``w``), and the comm-state entries it sets."""
+    offs: tuple
+    a: float
+    act: np.ndarray
+    masks: list
+    incs: list
+    w0: np.ndarray
+    w: np.ndarray
+    state: dict
+
+
+@dataclasses.dataclass(frozen=True)
 class Exchange:
     topology: str
     codec: codecs_mod.Codec             # the params stream's codec
@@ -770,13 +785,44 @@ class Exchange:
         new_state["round"] = comm_state["round"] + 1
         if not offs:                               # G == 1: no wire
             return dict(xs), new_state
+        ps = self.push_sum_round(comm_state)
+        dev = _device(xs["params"])
+        act_d = _col(ps.act, dev)
+        masks_d = [[_col(m, dev) for m in mh] for mh in ps.masks]
+        incs_d = [[_col(m, dev) for m in ih] for ih in ps.incs]
+        w0_d, w_d = _col(ps.w0, dev), _col(ps.w, dev)
+        backlog = {k: _own_backlog(v)
+                   for k, v in comm_state["backlog"].items()}
+        mixed = {}
+        for k, x in xs.items():
+            codec = self.stream_codec(k)
+
+            def ratio(v, bl):
+                num = v.to(torch.float32) * w0_d
+                for h in range(self.mix_rounds):
+                    num = _push_sum_hop(num, bl, ps.a, act_d, offs,
+                                        incs_d[h], masks_d[h], codec)
+                return torch.div(num, w_d, out=v)
+
+            mixed[k] = _each_leaf(ratio, x, backlog[k])
+        new_state.update(ps.state)
+        new_state["backlog"] = backlog
+        return mixed, new_state
+
+    def push_sum_round(self, comm_state: dict) -> "PushSumRound":
+        """One push-sum round's host side, shared by the replicated and
+        the sharded exchange: the liveness, the per-(hop, offset) delivery
+        masks and sender columns (one set for every stream of the one
+        physical transmission), the weight channel before and after
+        (float32 numpy, the reference's ops in its order), and the new
+        ``mass``, ``backlog_w`` and ``participation``."""
+        G = self.n_groups
+        offs = topo_mod.push_sum_offsets(G)
         rnd = int(comm_state["round"])
         plan = self.fault_plan
         a = 1.0 / (len(offs) + 1.0)
         act = (plan.active_mask(rnd, G) if plan is not None
                else np.ones((G,), np.float32))
-        # one mask per (hop, offset), shared by every stream of the one
-        # physical transmission
         masks, incs = [], []
         for h in range(self.mix_rounds):
             mh, ih = [], []
@@ -793,35 +839,14 @@ class Exchange:
         for h in range(self.mix_rounds):
             w, blw = _push_sum_weights(w, blw, a, act, offs, incs[h],
                                        masks[h])
-        dev = _device(xs["params"])
-        act_d = _col(act, dev)
-        masks_d = [[_col(m, dev) for m in mh] for mh in masks]
-        incs_d = [[_col(m, dev) for m in ih] for ih in incs]
-        w0_d, w_d = _col(w0, dev), _col(w, dev)
-        backlog = {k: _own_backlog(v)
-                   for k, v in comm_state["backlog"].items()}
-        mixed = {}
-        for k, x in xs.items():
-            codec = self.stream_codec(k)
-
-            def ratio(v, bl):
-                num = v.to(torch.float32) * w0_d
-                for h in range(self.mix_rounds):
-                    num = _push_sum_hop(num, bl, a, act_d, offs, incs_d[h],
-                                        masks_d[h], codec)
-                return torch.div(num, w_d, out=v)
-
-            mixed[k] = _each_leaf(ratio, x, backlog[k])
-        new_state["mass"] = torch.from_numpy(w)
-        new_state["backlog"] = backlog
-        new_state["backlog_w"] = torch.from_numpy(blw)
         total = np.float32(0)
         for mh in masks:
             for m in mh:
                 total = total + _mask_mean(m)
-        new_state["participation"] = _f32(
-            total / np.float32(self.mix_rounds * len(offs)))
-        return mixed, new_state
+        return PushSumRound(offs, a, act, masks, incs, w0, w, {
+            "mass": torch.from_numpy(w), "backlog_w": torch.from_numpy(blw),
+            "participation": _f32(
+                total / np.float32(self.mix_rounds * len(offs)))})
 
     def _hier_streams(self, xs: dict, xs0: dict, comm_state: dict):
         """The two-tier round (DESIGN.md §16).

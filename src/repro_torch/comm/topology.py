@@ -132,3 +132,17 @@ def n_edge_sends(w: np.ndarray) -> int:
     off = w.copy()
     np.fill_diagonal(off, 0.0)
     return int(np.count_nonzero(off))
+
+
+def neighbor_offsets(w: np.ndarray) -> tuple:
+    """Distinct nonzero circulant offsets of W's off-diagonal support:
+    ``d`` is in the result iff some node i receives from ``(i + d) % m``.
+    The sharded hop (``sharding/shardexec.py``) ships one neighbour
+    exchange per offset: exactly {1, m-1} for a ring, the union of
+    offsets for a gossip graph (entries without an edge carry weight 0;
+    the wire accounting counts only true edges, ``n_edge_sends``)."""
+    m = w.shape[0]
+    off = w.copy()
+    np.fill_diagonal(off, 0.0)
+    i, j = np.nonzero(off)
+    return tuple(sorted({int(d) for d in (j - i) % m}))

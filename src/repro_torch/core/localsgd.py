@@ -44,7 +44,16 @@ in-flight payload before its local steps and puts its own result in
 flight (DESIGN.md §14); the pytree round refuses overlap and the
 flat-only codecs (int8, int8z, top-k), as the reference's does.
 
-Not ported yet: sharded execution (ROADMAP.md Queue A item 5).
+Sharded execution (``shardexec=``, a ``sharding.ShardExec``; DESIGN.md
+§9): the packed round on G * S ranks, rank ``g * S + s`` holding the
+(1, Np / S) block of group g's buffers on a ``packing.ShardedLayout``
+(``init_state(..., shardexec=)`` builds it). Each local step gathers the
+group's params over the shard subgroup, takes the loss and gradient on
+the group's whole batch (the reference's in-group batch is replicated)
+and keeps its own shard of the packed gradient; the fused update, the
+norms and the exchange run on the block (``shardexec.py``). The metrics
+are the unsharded round's (G,) vectors on every rank, and so are the
+wire bytes.
 """
 from __future__ import annotations
 
@@ -204,21 +213,24 @@ def _residual_sq_groups(res, n_groups: int, device, impl: str):
 
 def _obs_round_metrics(exch, comm_state: dict, streams, consensus_pre,
                        consensus_post, n_groups: int, device,
-                       impl: str) -> dict:
+                       impl: str, sq_groups=None) -> dict:
     """The reference's uniform per-round block (DESIGN.md §13): consensus
     before and after, each stream's codec error (its error-feedback
     residual), push-sum's queued weight mass, participation (overall and
     per tier) and the exchange's expected delivery rates. Always the same
     keys: ones and zeros where a quantity is inert (a flat topology is one
-    tier, the whole wire "intra")."""
+    tier, the whole wire "intra"). ``sq_groups`` reduces a residual to
+    (G,) (default: the ``sq_norm_groups`` kernel on the whole buffer)."""
     def dev(x):
         return torch.as_tensor(x, dtype=torch.float32, device=device)
 
     m = {"consensus_sq": consensus_pre, "consensus_sq_post": consensus_post}
     cstates = comm_state.get("codec", {})
     for s in streams:
-        m[f"codec_err/{s}"] = _residual_sq_groups(
-            cstates.get(s, {}).get("residual"), n_groups, device, impl)
+        res = cstates.get(s, {}).get("residual")
+        m[f"codec_err/{s}"] = (
+            _residual_sq_groups(res, n_groups, device, impl)
+            if sq_groups is None or res is None else sq_groups(res))
     m["backlog_mass"] = (dev(comm_state["backlog_w"].sum())
                          if "backlog_w" in comm_state else dev(0.0))
     m["participation"] = dev(comm_state.get("participation", 1.0))
@@ -257,12 +269,10 @@ def make_local_round(loss_fn: Callable, opt: Optimizer, cfg: LocalSGDConfig,
     With ``layout`` and a packed optimizer the round is the packed one:
     ``opt.impl`` selects the update and norm kernels (on a CUDA state
     "auto" launches them; the exchange's codecs dispatch on the device
-    the same way). Without, the pytree round. ``exchange`` defaults to
+    the same way). With ``shardexec`` too (a ``sharding.ShardExec`` and a
+    ``packing.ShardedLayout``), the packed round on this rank's block.
+    Without a layout, the pytree round. ``exchange`` defaults to
     server/fp32."""
-    if shardexec is not None:
-        raise NotImplementedError(
-            "sharded execution is not ported yet (ROADMAP.md Queue A, "
-            "sharding/shardexec.py -> torch.distributed)")
     _check_cfg(cfg)
     exch = exchange if exchange is not None else comm_mod.default_exchange(
         cfg.n_groups)
@@ -274,7 +284,15 @@ def make_local_round(loss_fn: Callable, opt: Optimizer, cfg: LocalSGDConfig,
             raise ValueError(
                 "packed rounds need BOTH a packing.Layout and a packed "
                 "optimizer (optim.packed / optim.get(..., packed=True))")
+        if shardexec is not None:
+            return _make_sharded_round(loss_fn, opt, cfg, layout, exch,
+                                       shardexec)
         return _make_packed_local_round(loss_fn, opt, cfg, layout, exch)
+    if shardexec is not None:
+        raise ValueError(
+            "shardexec shards the packed flat buffer — it has no meaning "
+            "for the per-leaf pytree round; pass layout= and a packed "
+            "optimizer (DESIGN.md §9)")
     return _make_tree_local_round(loss_fn, opt, cfg, exch)
 
 
@@ -523,6 +541,115 @@ def _make_packed_local_round(loss_fn, opt, cfg, layout, exch):
 
 
 # ---------------------------------------------------------------------------
+# The packed round on sharded buffers (DESIGN.md §9)
+# ---------------------------------------------------------------------------
+
+
+def _make_sharded_round(loss_fn, opt, cfg, layout, exch, sexec):
+    if cfg.metrics not in ("traj", "final"):
+        raise ValueError(f"metrics={cfg.metrics!r} (have 'traj', 'final')")
+    if cfg.threshold is not None:
+        raise NotImplementedError(
+            "threshold (T_i=inf) mode runs on the pytree path")
+    if cfg.t_i is not None and cfg.inner_mode == "microbatch":
+        raise NotImplementedError(
+            "t_i is only defined for fixed_batch mode (the pytree path "
+            "silently ignores it for microbatch)")
+    # the reference checks the padded (G, Np) buffer before it shards
+    packing.check_packed_index_space(layout, cfg.n_groups)
+    if cfg.t_i is not None and opt.count_dependent:
+        raise NotImplementedError(
+            "per-node t_i with a count-dependent update keeps a (G,) "
+            "count vector outside the sharded opt step; run it on the "
+            "replicated packed path (DESIGN.md §10)")
+    if sexec.n_groups != cfg.n_groups:
+        raise ValueError(f"the mesh holds {sexec.n_groups} groups but "
+                         f"cfg.n_groups={cfg.n_groups}")
+    sexec.check_layout(layout)
+    mkeys = (packing.stream_layout_for(opt, layout).moment_streams
+             if cfg.average_opt_state else ())
+    flat_vg = packing.value_and_flat_grad(loss_fn, layout)
+    opt_step = sexec.opt_step(opt)
+    exch_streams = sexec.exchange_streams(exch, layout)
+    consensus = sexec.consensus_sq_groups(opt.impl)
+    mesh, g = sexec.mesh, sexec.group_index
+    lo, hi = sexec.bounds(layout)
+    traj = cfg.metrics == "traj"
+    micro = cfg.inner_mode == "microbatch"
+    G, T = cfg.n_groups, cfg.inner_steps
+
+    def round_(state, batch_G):
+        _check_comm_state(exch, state, mkeys)
+        comm_state = state.get("comm", {})
+        params = state["params"]                       # (1, shard)
+        dev = params.device
+        opt_state = dict(state["opt"])
+        xs0 = {k: (params if k == "params" else opt_state[k]).clone()
+               for k in ("params",) + tuple(mkeys) if exch.lossy_stream(k)}
+        batch = tree.tree_map(lambda x: x[g], batch_G)
+        steps = ([tree.tree_map(lambda x: x[t], batch) for t in range(T)]
+                 if micro else None)
+        full = torch.empty((layout.padded,), dtype=torch.float32,
+                           device=dev)
+        full_grad = torch.empty_like(full)
+        grads = torch.empty_like(params)
+        losses, parts = [], []
+        for t in range(T):
+            # the group's params over the shard subgroup; the gradient on
+            # the group's whole batch, then this rank's shard of it
+            mesh.all_gather(params[0], "shard", out=full)
+            loss, _ = flat_vg(full, steps[t] if micro else batch,
+                              out=full_grad)
+            grads[0].copy_(full_grad[lo:hi])
+            act = (None if cfg.t_i is None else torch.tensor(
+                [t < cfg.t_i[g]], device=dev))
+            params, opt_state = opt_step(params, grads, opt_state,
+                                         active=act)
+            if traj:
+                losses.append(loss)
+                parts.append(sq_norm_groups(grads, impl=opt.impl))
+        del grads, full_grad
+        n_steps = torch.tensor(cfg.t_i if cfg.t_i is not None else [T] * G,
+                               dtype=torch.int32, device=dev)
+        if traj:
+            gsq_traj = sexec.shard_sums(torch.cat(parts))     # (G, T)
+            loss_traj = sexec.groups_of(torch.stack(losses))
+            metrics = {"loss": loss_traj[:, -1], "inner_steps": n_steps,
+                       "grad_sq": gsq_traj[:, -1],
+                       "grad_sq_first": gsq_traj[:, 0],
+                       "grad_sq_traj": gsq_traj}
+        else:
+            mesh.all_gather(params[0], "shard", out=full)
+            loss, leaf_grads = packing.value_and_leaf_grads(
+                loss_fn, layout, full, steps[-1] if micro else batch)
+            both = sexec.groups_of(torch.stack(
+                [loss.to(torch.float32), grad_sq_norm(leaf_grads)]))
+            del leaf_grads
+            metrics = {"loss": both[:, 0], "inner_steps": n_steps,
+                       "grad_sq": both[:, 1]}
+        del full
+        consensus_pre = consensus(params)
+        xs = {"params": params, **{k: opt_state[k] for k in mkeys}}
+        mixed, comm_state = exch_streams(xs, xs0, comm_state)
+        mixed = _clamp_nonneg_streams(mixed, opt, exch)
+        del xs0, xs
+        params = mixed["params"]
+        opt_state.update({k: mixed[k] for k in mkeys})
+        metrics.update(_round_wire_bytes(exch, layout.padded,
+                                         {k: layout.padded for k in mkeys}))
+        metrics.update(_obs_round_metrics(
+            exch, comm_state, ("params",) + tuple(mkeys), consensus_pre,
+            consensus(params), G, dev, opt.impl,
+            sq_groups=sexec.sq_norm_groups(opt.impl)))
+        out = {"params": params, "opt": opt_state}
+        if "comm" in state:
+            out["comm"] = comm_state
+        return out, metrics
+
+    return round_
+
+
+# ---------------------------------------------------------------------------
 # Conventional baseline: synchronous data parallelism (one step per batch)
 # ---------------------------------------------------------------------------
 
@@ -569,15 +696,25 @@ def make_sync_step(loss_fn: Callable, opt: Optimizer,
 def init_state(params, opt: Optimizer, n_groups: Optional[int] = None,
                layout: Optional[packing.Layout] = None,
                exchange: Optional[comm_mod.Exchange] = None,
-               average_opt_state: bool = True):
+               average_opt_state: bool = True, shardexec=None):
     """The train state of a round (``n_groups``) or of a sync step (no
     G axis). Packed (``layout``): the params tree packed to (N,), copied
-    to every row of a (G, N) buffer, plus the optimizer's state. Pytree:
-    the params tree and its optimizer state, replicated over G (the
-    count too, so each group keeps its own). An exchange that carries
-    state between rounds adds it under ``"comm"``, for the params and
-    (when the rounds average opt state) every moment stream."""
-    if layout is not None:
+    to every row of a (G, N) buffer, plus the optimizer's state; with
+    ``shardexec``, this rank's (1, shard) block of it (the exchange's
+    state then shards alike). Pytree: the params tree and its optimizer
+    state, replicated over G (the count too, so each group keeps its
+    own). An exchange that carries state between rounds adds it under
+    ``"comm"``, for the params and (when the rounds average opt state)
+    every moment stream."""
+    if shardexec is not None:
+        if layout is None or not n_groups:
+            raise ValueError("a sharded state is a packed round's: pass "
+                             "layout= and n_groups")
+        shardexec.check_layout(layout)
+        lo, hi = shardexec.bounds(layout)
+        buf = packing.pack(params, layout)[lo:hi][None].clone()
+        state = {"params": buf, "opt": opt.init(buf)}
+    elif layout is not None:
         buf = packing.pack(params, layout)
         if n_groups:
             buf = buf[None].repeat(n_groups, 1)
@@ -597,8 +734,15 @@ def init_state(params, opt: Optimizer, n_groups: Optional[int] = None,
     return state
 
 
-def server_params(state_G, layout: Optional[packing.Layout] = None):
-    """The averaged (server) model of a grouped state, as a tree."""
+def server_params(state_G, layout: Optional[packing.Layout] = None,
+                  shardexec=None):
+    """The averaged (server) model of a grouped state, as a tree; of a
+    sharded state, on every rank (a collective: the G-mean of each block,
+    gathered over the shard subgroup)."""
+    if shardexec is not None:
+        mean = shardexec.pmean(state_G["params"].clone())
+        row = shardexec.mesh.all_gather(mean[0], "shard").reshape(-1)
+        return packing.unpack(row, layout)
     if layout is not None:
         buf = state_G["params"]
         if buf.dim() > 1:

@@ -10,6 +10,14 @@ loaded. At first use every missing library is compiled at once, one nvcc
 process per source, and nothing is built when a module is imported.
 ``_build/`` lies inside the package and is listed in ``.gitignore``.
 
+Several processes may share ``_build/`` (the ranks of a sharded run; the
+launcher and ``chip_smoke.py`` build every library before they start
+them). The lock below guards one process's threads only, so each build
+writes its library and its log under names of its own (the process id)
+and ``os.replace`` moves them into place: no process ever loads a
+half-written library, and two concurrent builds of one source both
+leave a whole one.
+
 No ``--use_fast_math``: the kernels keep IEEE division and square root so
 that they agree with the plain PyTorch versions.
 """
@@ -135,16 +143,19 @@ def _compile_all(stems) -> None:
     for stem in stems:
         out = library_path(stem)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        log = open(out.with_suffix(".log"), "w")
+        tmp_log = tmp.with_suffix(".log")
+        log = open(tmp_log, "w")
         proc = subprocess.Popen(nvcc_command(stem, tmp), stdout=log,
                                 stderr=subprocess.STDOUT)
-        jobs.append((stem, proc, tmp, out, log))
+        jobs.append((stem, proc, tmp, out, log, tmp_log))
     failed = []
-    for stem, proc, tmp, out, log in jobs:
+    for stem, proc, tmp, out, log, tmp_log in jobs:
         rc = proc.wait()
         log.close()
+        # atomic: readers never see half a file
+        os.replace(tmp_log, out.with_suffix(".log"))
         if rc == 0:
-            os.replace(tmp, out)       # atomic: readers never see half a file
+            os.replace(tmp, out)
         else:
             failed.append(f"{stem}.cu (nvcc exit {rc}):\n{build_log(stem)}")
     if failed:

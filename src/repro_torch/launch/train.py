@@ -29,6 +29,9 @@ sync-DP baseline) on one device (counterpart of
     PYTHONPATH=src python -m repro_torch.obs.report t.jsonl --check
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --arch whisper-base --reduced --packed    # frames beside the tokens
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --arch paper-mlp --reduced --packed --shard 2 --comm ring \\
+        --codec int8                              # G * S ranks
 
 Runs on ``cuda`` unless ``--device cpu`` is given; on ``cuda`` the
 packed updates, norms and exchange codecs launch the CUDA kernels of
@@ -55,9 +58,22 @@ writes the JSONL records. On the packed round, ``--trace``,
 ``--overlap`` and ``--adaptive-t online`` first calibrate the
 exchange-time split (``calibrate_fences``), so each round also records
 ``exchange_exposed`` and ``exchange_total``. ``--profile <dir>`` writes
-a Chrome trace of the rounds (or steps) under ``<dir>``. The flags are
-the reference launcher's that the port covers; its other flags are
-refused with the ROADMAP.md item that will port them.
+a Chrome trace of the rounds (or steps) under ``<dir>``.
+
+``--shard S`` (with ``--packed`` and ``--mode localsgd``) runs the packed
+round sharded over G * S ranks (``sharding/shardexec.py``; ``--hop-impl``
+picks the ring/gossip hop collective). The launcher builds the kernel
+libraries, then starts the ranks on this host and joins them within
+``--world-timeout`` seconds, or joins the world that ``WORLD_SIZE``,
+``RANK``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR`` and
+``MASTER_PORT`` describe (one process a rank, as ``torchrun`` starts
+them). Each rank holds its (1, Np / S) block; the metrics are the
+unsharded round's (G,) vectors; rank 0 prints, writes the trace and the
+profile, and saves the checkpoint, gathered to the unsharded layout. The
+transport is printed (``launch/mesh.py``): NCCL where each rank of a
+host has a card of its own, else CUDA IPC mailboxes on the shared card.
+``--comm hierarchical`` and ``--overlap`` wait for ROADMAP.md Queue A
+item 5b there.
 """
 from __future__ import annotations
 
@@ -65,6 +81,8 @@ import argparse
 import dataclasses
 import gc
 import math
+import os
+import sys
 
 import numpy as np
 import torch
@@ -76,15 +94,10 @@ from repro_torch.configs.base import get_config
 from repro_torch.core import localsgd as lsgd
 from repro_torch.core.controller import AdaptiveT, OnlineT
 from repro_torch.data.synthetic import TokenPipeline
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models.api import build_model
 from repro_torch.optim import packing
-
-# the reference launcher's flags outside this slice -> the ROADMAP item
-_NOT_PORTED = {
-    "--shard": "sharding/shardexec.py -> torch.distributed",
-    "--hop-impl": "sharding/shardexec.py -> torch.distributed",
-}
-
+from repro_torch.sharding import shardexec as shx
 
 # the threshold mode's cap on local steps a round (the reference
 # launcher's)
@@ -116,14 +129,17 @@ def build_run(arch: str, *, reduced: bool = False, groups: int = 4,
               intra_topology: str = "ring", inter_topology: str = "push_sum",
               inter_codec: str = "", intra_drop_rate: float = 0.0,
               intra_stall_rate: float = 0.0, metrics: str = "final",
-              seed: int = 0, device="cuda"):
+              seed: int = 0, device="cuda", shardexec=None):
     """Model, layout (None for the pytree round), round, initial state,
     round config, a ``rebuild(lcfg)`` for another config of the same run,
     and the exchange. Returns (cfg, model, layout, round_fn, state, lcfg,
     rebuild, exchange). The exchange's codecs draw from codec seed 0, as
-    the reference launcher's do; its fault plan from ``fault_seed``."""
+    the reference launcher's do; its fault plan from ``fault_seed``. With
+    ``shardexec`` the layout is sharded and the state this rank's block."""
     cfg, model, params, layout, optimizer = _model_and_opt(
         arch, reduced, packed, opt, lr, impl, seed, device)
+    if shardexec is not None:
+        layout = packing.shard_layout(layout, shardexec.n_shards)
     exchange = comm_mod.get_exchange(
         comm, codec, groups, mix_rounds=mix_rounds, staleness=staleness,
         impl=impl, moment_codec=moment_codec, downlink_codec=downlink_codec,
@@ -138,11 +154,12 @@ def build_run(arch: str, *, reduced: bool = False, groups: int = 4,
 
     def rebuild(lc):
         return lsgd.make_local_round(model.loss, optimizer, lc,
-                                     layout=layout, exchange=exchange)
+                                     layout=layout, exchange=exchange,
+                                     shardexec=shardexec)
 
     rnd = rebuild(lcfg)         # refuses what the round cannot run
     state = lsgd.init_state(params, optimizer, groups, layout,
-                            exchange=exchange)
+                            exchange=exchange, shardexec=shardexec)
     return cfg, model, layout, rnd, state, lcfg, rebuild, exchange
 
 
@@ -170,7 +187,8 @@ def _model_and_opt(arch, reduced, packed, opt, lr, impl, seed, device):
     return cfg, model, params, layout, optimizer
 
 
-def calibrate_fences(loss_fn, opt, lcfg, layout, exchange, params, batch):
+def calibrate_fences(loss_fn, opt, lcfg, layout, exchange, params, batch,
+                     shardexec=None):
     """The two references ``obs.exchange_phases`` derives the honest
     exchange-time split from (DESIGN.md §14): the SAME packed round built
     with comm='none' gives the pure-local-compute time, and (in overlap
@@ -185,8 +203,9 @@ def calibrate_fences(loss_fn, opt, lcfg, layout, exchange, params, batch):
 
     def best_round_s(exch):
         rnd = lsgd.make_local_round(loss_fn, opt, lcfg, layout=layout,
-                                    exchange=exch)
-        st = lsgd.init_state(params, opt, n_groups, layout, exchange=exch)
+                                    exchange=exch, shardexec=shardexec)
+        st = lsgd.init_state(params, opt, n_groups, layout, exchange=exch,
+                             shardexec=shardexec)
         best = float("inf")
         for i in range(3):
             with obs.PhaseTimer() as t:
@@ -207,7 +226,7 @@ def calibrate_fences(loss_fn, opt, lcfg, layout, exchange, params, batch):
     return local_ref_s / max(lcfg.inner_steps, 1), exch_ref_s
 
 
-def main(argv=None) -> None:
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="paper-lenet")
     ap.add_argument("--reduced", action="store_true")
@@ -244,6 +263,22 @@ def main(argv=None) -> None:
                     help="packed update/norm kernels: 'auto' launches the "
                          "CUDA kernels on a CUDA device, 'torch' takes the "
                          "plain versions")
+    ap.add_argument("--shard", type=int, default=1,
+                    help="in-group shard count S (packed localsgd only): "
+                         "shards the flat buffer over G * S ranks, rank "
+                         "g * S + s holding shard s of group g, the fused, "
+                         "norm and codec kernels on the local shard "
+                         "(DESIGN.md §9)")
+    ap.add_argument("--world-timeout", type=float, default=6 * 3600.0,
+                    help="--shard: seconds the started ranks have to "
+                         "finish, after which they are stopped and the "
+                         "run fails (a rank that fails stops them at "
+                         "once; a collective waiting past 120 s raises)")
+    ap.add_argument("--hop-impl", default="ppermute",
+                    choices=["ppermute", "allgather"],
+                    help="sharded ring/gossip hop collective (DESIGN.md "
+                         "§11): point-to-point neighbour exchange "
+                         "(O(deg*shard) wire) or the dense all_gather")
     ap.add_argument("--comm", "--topology", dest="comm", default="server",
                     help="exchange topology: server, ring, gossip, "
                          "async_stale, push_sum (loss-tolerant ratio "
@@ -318,14 +353,13 @@ def main(argv=None) -> None:
                     help="write a Chrome trace (torch.profiler; CPU and, on "
                          "a CUDA device, CUDA activity) of the rounds under "
                          "this directory")
-    args, unknown = ap.parse_known_args(argv)
-    for tok in unknown:
-        flag = tok.split("=")[0]
-        if flag in _NOT_PORTED:
-            ap.error(f"{flag} is not ported yet (ROADMAP.md Queue A, "
-                     f"{_NOT_PORTED[flag]})")
-    if unknown:
-        ap.error(f"unrecognized arguments: {' '.join(unknown)}")
+    return ap
+
+
+def main(argv=None) -> None:
+    ap = _parser()
+    argv = list(argv) if argv is not None else None
+    args = ap.parse_args(argv)
     if args.mode == "sync" and (args.comm != "server" or args.codec != "fp32"
                                 or args.moment_codec != "fp32"
                                 or args.downlink_codec or args.overlap
@@ -338,6 +372,9 @@ def main(argv=None) -> None:
                  "has no exchange to configure")
     if args.impl != "auto" and not args.packed:
         ap.error("--impl selects the packed fused kernels; add --packed")
+    if args.shard > 1 and not (args.packed and args.mode == "localsgd"):
+        ap.error("--shard shards the packed flat buffer over a mesh; it "
+                 "needs --packed and --mode localsgd")
     if args.overlap and not args.packed:
         ap.error("--overlap double-buffers the packed flat stream payload "
                  "(comm['inflight'], DESIGN.md §14); add --packed")
@@ -348,7 +385,82 @@ def main(argv=None) -> None:
     t_i = [int(v) for v in args.t_i.split(",")] if args.t_i else None
     if t_i and len(t_i) != args.groups:
         ap.error(f"--t-i needs {args.groups} entries, got {len(t_i)}")
+    if args.shard > 1:
+        _check_sharded(ap, args, t_i)
+        world = args.groups * args.shard
+        if "WORLD_SIZE" in os.environ:
+            # one process a rank, started by the caller (torchrun)
+            if int(os.environ["WORLD_SIZE"]) != world:
+                ap.error(f"WORLD_SIZE={os.environ['WORLD_SIZE']}, but "
+                         f"--groups {args.groups} x --shard {args.shard} "
+                         f"is {world} ranks")
+            rank, _, local_rank, local_world = mesh_mod.env_ranks()
+            ok = False
+            try:
+                _train(args, t_i, mesh_mod.init_world(
+                    rank, world, device_type=device.type,
+                    local_rank=local_rank, local_world=local_world),
+                    sharded=True)
+                ok = True
+            finally:
+                mesh_mod.leave_world(close=ok)
+            return
+        if device.type == "cuda":
+            # every library built before the ranks start: none of them
+            # compiles, or loads a half-written one
+            from repro_torch.kernels import build
+            build.load_all()
+        mesh_mod.run_ranks(_rank_main, world,
+                           argv if argv is not None else sys.argv[1:],
+                           device_type=device.type,
+                           timeout=args.world_timeout)
+        return
+    _train(args, t_i, device, sharded=False, ap=ap)
 
+
+def _check_sharded(ap, args, t_i) -> None:
+    """The sharded run's refusals, on shapes alone, before any rank
+    starts: the reference launcher's guards and the sharded exchange's."""
+    try:
+        exchange = comm_mod.get_exchange(
+            args.comm, args.codec, args.groups, mix_rounds=args.mix_rounds,
+            staleness=args.staleness, moment_codec=args.moment_codec,
+            downlink_codec=args.downlink_codec, drop_rate=args.drop_rate,
+            stall_rate=args.stall_rate, fault_seed=args.fault_seed,
+            overlap=args.overlap, n_pods=args.n_pods,
+            intra_topology=args.intra_topology,
+            inter_topology=args.inter_topology, inter_codec=args.inter_codec,
+            intra_drop_rate=args.intra_drop_rate,
+            intra_stall_rate=args.intra_stall_rate)
+        shx.check_exchange(exchange)
+    except (NotImplementedError, ValueError) as e:
+        ap.error(str(e))
+    if args.threshold is not None:
+        ap.error("threshold (T_i=inf) mode runs on the pytree path; "
+                 "--shard needs --packed")
+    if t_i and optim.get(args.opt, args.lr, packed=True).count_dependent:
+        ap.error("per-node --t-i with a count-dependent update (adamw) "
+                 "keeps a (G,) count vector outside the sharded opt step; "
+                 "run it without --shard (DESIGN.md §10)")
+
+
+def _rank_main(rank: int, world: int, argv) -> None:
+    """One rank of a sharded run started by ``main``."""
+    args = _parser().parse_args(argv)
+    t_i = [int(v) for v in args.t_i.split(",")] if args.t_i else None
+    _train(args, t_i, mesh_mod.rank_device(rank, args.device.split(":")[0]),
+           sharded=True)
+
+
+def _train(args, t_i, device, *, sharded: bool, ap=None) -> None:
+    """The run itself: one process, or one rank of a sharded world (rank
+    0 prints, traces, profiles and saves)."""
+    sexec, rank0 = None, True
+    if sharded:
+        mesh = mesh_mod.make_local_mesh(args.groups, args.shard, device.type)
+        sexec = shx.plan_for(mesh, require=True, hop_impl=args.hop_impl)
+        rank0 = mesh.rank == 0
+    say = print if rank0 else (lambda *a, **k: None)
     common = dict(reduced=args.reduced, packed=args.packed, opt=args.opt,
                   lr=args.lr, impl=args.impl, seed=args.seed, device=device)
     if args.mode == "sync":
@@ -369,19 +481,27 @@ def main(argv=None) -> None:
                     inter_codec=args.inter_codec,
                     intra_drop_rate=args.intra_drop_rate,
                     intra_stall_rate=args.intra_stall_rate,
-                    metrics="traj" if args.adaptive_t else "final", **common)
+                    metrics="traj" if args.adaptive_t else "final",
+                    shardexec=sexec, **common)
         except (NotImplementedError, ValueError) as e:
+            if ap is None:
+                raise
             ap.error(str(e))
     n_params = sum(math.prod(d.shape) for d in tree.leaves(model.defs))
-    print(f"arch={cfg.name} params={n_params / 1e6:.1f}M mode={args.mode} "
-          f"{'packed' if args.packed else 'pytree'} device={device}")
+    say(f"arch={cfg.name} params={n_params / 1e6:.1f}M mode={args.mode} "
+        f"{'packed' if args.packed else 'pytree'} device={device}")
+    if sexec is not None:
+        say(f"sharded execution: G={args.groups} x {args.shard} shards on "
+            f"{args.groups * args.shard} ranks, buffer {layout.size} -> "
+            f"{layout.padded} padded ({layout.shard_size}/shard), "
+            f"transport {sexec.mesh.transport}")
     # one Trace whether or not --trace is given: the null sink still
     # fences every phase, so the printed times are honest
-    trace = obs.Trace(args.trace or None, meta={
+    trace = obs.Trace(args.trace if rank0 and args.trace else None, meta={
         "arch": cfg.name, "mode": args.mode, "groups": args.groups,
         "t_inner": args.t_inner, "comm": args.comm, "codec": args.codec,
         "rounds": args.rounds, "n_params": n_params,
-        "packed": bool(args.packed), "shard": 1,
+        "packed": bool(args.packed), "shard": args.shard,
         "overlap": bool(args.overlap), "adaptive_t": args.adaptive_t,
         "drop_rate": args.drop_rate, "stall_rate": args.stall_rate})
     pipe = TokenPipeline(cfg.vocab_size, args.seq, seed=args.seed)
@@ -394,14 +514,14 @@ def main(argv=None) -> None:
 
     if args.mode == "sync":
         batches = pipe.batches((args.groups * args.per_group,))
-        with obs.profile_span(args.profile, device):
+        with obs.profile_span(args.profile if rank0 else "", device):
             for n in range(args.rounds):
                 batch = batch_of(batches)
                 with trace.phase("step") as f:
                     state, m = f(step(state, batch))
                 rec = trace.emit_round(n, m, kind="step")
                 if n % args.log_every == 0:
-                    print(f"step {n:4d} loss {float(m['loss']):.4f} "
+                    say(f"step {n:4d} loss {float(m['loss']):.4f} "
                           f"gsq {float(m['grad_sq']):.3e} "
                           f"({rec['phase_s'].get('step', 0.0):.2f}s)")
         final = (packing.unpack(state["params"], layout) if args.packed
@@ -426,7 +546,7 @@ def main(argv=None) -> None:
                            "delivery_rate": exchange.delivery_rate})
         batches = pipe.batches((args.groups, args.per_group))
         wire_total = 0
-        with obs.profile_span(args.profile, device):
+        with obs.profile_span(args.profile if rank0 else "", device):
             for n in range(args.rounds):
                 batch = batch_of(batches)
                 if calibrate and n == 0:
@@ -434,9 +554,12 @@ def main(argv=None) -> None:
                         model.loss, optim.get(args.opt, args.lr, packed=True,
                                               impl=args.impl),
                         lcfg, layout, exchange,
-                        packing.unpack(state["params"][0], layout), batch)
-                    print(f"fences: local {local_ref_step!r} s a step, "
-                          f"exchange {exch_ref_s!r} s")
+                        packing.unpack(state["params"][0], layout)
+                        if sexec is None else lsgd.server_params(
+                            state, layout, shardexec=sexec),
+                        batch, shardexec=sexec)
+                    say(f"fences: local {local_ref_step!r} s a step, "
+                        f"exchange {exch_ref_s!r} s")
                 if ctl is not None and t_cur != lcfg.inner_steps:
                     # a new T: the controller's T for every group, no t_i
                     # and no threshold (as the reference launcher rebuilds)
@@ -471,31 +594,39 @@ def main(argv=None) -> None:
                                           if k.startswith("codec_err/")))
                     else:
                         t_cur = ctl.update(traj)
+                    if sexec is not None:
+                        # rank 0's T: the fenced times differ by rank
+                        box = [t_cur]
+                        torch.distributed.broadcast_object_list(box, src=0)
+                        t_cur = box[0]
                 rec = trace.emit_round(n, m)
                 wire_total += int(m["wire_bytes"])
                 if n % args.log_every == 0:
-                    print(f"round {n:4d} "
-                          f"loss {float(m['loss'].mean()):.4f} "
-                          f"gsq {float(m['grad_sq'].mean()):.3e} "
-                          f"T {t_used} "
-                          f"wire {int(m['wire_bytes']):,}B "
-                          f"part {float(m['participation']):.2f} "
-                          f"cons {float(m['consensus_sq'].mean()):.3e} "
-                          f"({rec['phase_s'].get('round', 0.0):.2f}s)")
-        print(f"comm {exchange.name}: {wire_total:,} wire bytes over "
-              f"{args.rounds} rounds")
-        final = lsgd.server_params(state, layout)
-    if args.checkpoint:
+                    say(f"round {n:4d} "
+                        f"loss {float(m['loss'].mean()):.4f} "
+                        f"gsq {float(m['grad_sq'].mean()):.3e} "
+                        f"T {t_used} "
+                        f"wire {int(m['wire_bytes']):,}B "
+                        f"part {float(m['participation']):.2f} "
+                        f"cons {float(m['consensus_sq'].mean()):.3e} "
+                        f"({rec['phase_s'].get('round', 0.0):.2f}s)")
+        say(f"comm {exchange.name}: {wire_total:,} wire bytes over "
+            f"{args.rounds} rounds")
+        # sharded: gathered to the unsharded layout on every rank (a
+        # collective)
+        final = (lsgd.server_params(state, layout) if sexec is None
+                 else lsgd.server_params(state, layout, shardexec=sexec))
+    if args.checkpoint and rank0:
         with trace.phase("checkpoint"):
             ckpt_io.save(args.checkpoint, final,
                          metadata={"arch": cfg.name, "rounds": args.rounds,
                                    "mode": args.mode})
         trace.emit("checkpoint", path=args.checkpoint,
                    seconds=round(trace.take_phases()["checkpoint"], 6))
-        print(f"checkpoint -> {args.checkpoint}.npz")
+        say(f"checkpoint -> {args.checkpoint}.npz")
     trace.close()
     if args.trace:
-        print(f"trace -> {args.trace} ({trace.n_records} records)")
+        say(f"trace -> {args.trace} ({trace.n_records} records)")
 
 
 if __name__ == "__main__":

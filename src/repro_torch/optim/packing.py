@@ -38,8 +38,46 @@ class Layout:
 
     @property
     def padded(self) -> int:
-        """Buffer length (no padding on the unsharded path)."""
+        """Buffer length including trailing zero padding (== size here;
+        ``ShardedLayout`` pads to a shard and chunk multiple)."""
         return self.size
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedLayout(Layout):
+    """Shard-aware Layout (DESIGN.md §9): the buffer is zero-padded to
+    ``pad_to``, a multiple of ``n_shards * align``, so it splits into
+    ``n_shards`` equal shards of whole ``align``-element codec chunks (an
+    int8 scale never straddles two ranks). ``unpack`` stops at ``size``;
+    zero params with zero grads and moments stay zero under every packed
+    optimizer, quantize to zero and average to zero, so the pad never
+    leaks into real elements."""
+    n_shards: int = 1
+    align: int = 1
+    pad_to: int = 0
+
+    @property
+    def padded(self) -> int:
+        return self.pad_to
+
+    @property
+    def shard_size(self) -> int:
+        return self.pad_to // self.n_shards
+
+
+def shard_layout(layout: Layout, n_shards: int,
+                 align: int = 256) -> ShardedLayout:
+    """Pad a Layout for ``n_shards``-way in-group sharding; ``align``
+    defaults to the int8 codec's chunk, so one geometry serves every
+    codec."""
+    if n_shards < 1 or align < 1:
+        raise ValueError(f"n_shards={n_shards}, align={align}: both must "
+                         "be >= 1")
+    q = n_shards * align
+    return ShardedLayout(layout.paths, layout.shapes, layout.dtypes,
+                         layout.offsets, layout.sizes, layout.size,
+                         n_shards=n_shards, align=align,
+                         pad_to=q * -(-layout.size // q))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,12 +131,15 @@ def layout_of(params) -> Layout:
 
 
 def pack(params, layout: Layout) -> torch.Tensor:
-    """Concatenate a tree's leaves into the float32 buffer; extra leading
-    axes on the leaves (all the same) become leading buffer axes."""
+    """Concatenate a tree's leaves into the float32 buffer (zero-padded
+    to ``layout.padded``); extra leading axes on the leaves (all the
+    same) become leading buffer axes."""
     leaves = tree.leaves(params)
     lead = leaves[0].shape[:leaves[0].dim() - len(layout.shapes[0])]
-    return torch.cat([l.reshape(*lead, -1).to(torch.float32)
-                      for l in leaves], dim=-1)
+    parts = [l.reshape(*lead, -1).to(torch.float32) for l in leaves]
+    if layout.padded > layout.size:
+        parts.append(parts[0].new_zeros(*lead, layout.padded - layout.size))
+    return torch.cat(parts, dim=-1)
 
 
 def unpack(buf: torch.Tensor, layout: Layout):
@@ -148,7 +189,8 @@ def value_and_leaf_grads(loss_fn, layout: Layout, buf, batch):
 def value_and_flat_grad(loss_fn, layout: Layout):
     """``vg(buf, batch, out=None) -> (loss, flat_grad)`` for a tree loss
     and one (N,) buffer: each leaf's gradient is copied into its slice of
-    ``out`` (a new (N,) buffer when not given)."""
+    ``out`` (a new (N,) buffer when not given); the pad region of a
+    ``ShardedLayout`` gets zeros."""
 
     def flat_vg(buf, batch, out=None):
         loss, grads = value_and_leaf_grads(loss_fn, layout, buf, batch)
@@ -156,6 +198,7 @@ def value_and_flat_grad(loss_fn, layout: Layout):
             out = torch.empty_like(buf)
         for o, s, g in zip(layout.offsets, layout.sizes, grads):
             out[o:o + s].copy_(g.reshape(-1))
+        out[layout.size:].zero_()
         return loss, out
 
     return flat_vg

@@ -75,11 +75,24 @@ def _inproc(args, capsys, cmd=CMD, launcher="train"):
 
 def test_cli_refuses_flags_outside_the_slice(capsys):
     # --trace, --profile and --adaptive-t online run since the telemetry
-    # slice (tests/test_torch_obs.py)
-    for extra in (["--shard", "2"], ["--hop-impl", "allgather"]):
-        code, _, err = _main(["--device", "cpu"] + extra, capsys)
+    # slice (tests/test_torch_obs.py); --shard since the sharding slice
+    # (tests/test_torch_shard_launch.py), but not with the two-tier and
+    # overlap exchanges, nor off the packed round
+    for extra in (["--comm", "hierarchical", "--n-pods", "2"],
+                  ["--comm", "ring", "--codec", "int8", "--overlap"]):
+        code, _, err = _main(["--device", "cpu", "--shard", "2"] + extra,
+                             capsys)
         assert code != 0
-        assert "not ported yet" in err and extra[0] in err, (extra, err)
+        assert "not ported yet" in err and "Queue A item 5b" in err, (
+            extra, err)
+    code, _, err = _main(["--device", "cpu", "--shard", "2",
+                          "--downlink-codec", "bf16"], capsys)
+    assert code != 0 and "downlink_codec" in err
+    code, _, err = _main(["--device", "cpu", "--shard", "2"], capsys,
+                         TREE_CMD)
+    assert code != 0 and "needs --packed" in err
+    code, _, err = _main(["--device", "cpu", "--hop-impl", "bogus"], capsys)
+    assert code != 0 and "--hop-impl" in err
     # the pytree round: overlap and int8 need the flat buffer (the
     # reference refuses them too); push_sum, faults and fp16 run there
     # (test_cli_runs_the_exchanges_on_the_pytree_round)
