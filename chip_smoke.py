@@ -306,9 +306,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    round's phases and the overlap efficiency logged; ``fused_adamw``
    launched 36 times (the 3 rounds and the calibration's 6) and
    ``qdq_int8`` 3. Then at once: (b) the online controller at paper-mlp
-   (sgd, lr 0.02, 4 rounds: it may ask for its cap of 10,000 steps a
-   round), each round's T and seconds logged, ``fused_sgd`` 12 (the
-   calibration) plus its T a round; (c) ``--mode sync`` with
+   (sgd, lr 0.02, 4 rounds, ``--t-max 16``: a round that fits no decay
+   asks for the cap, 10,000 steps by default), each round's T (at most
+   16) and seconds logged, ``fused_sgd`` 12 (the calibration) plus its T
+   a round; (c) ``--mode sync`` with
    ``--checkpoint`` (2 steps: ``fused_sgd`` and ``sq_norm_groups`` 2
    each, records ``step``, ``step``, ``checkpoint``) and the pytree
    round with push_sum at drop 0.1 (no kernel, no exchange split); (d)
@@ -367,7 +368,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    with int8 params; ring int8 at 2 hops with the ppermute hop and with
    the allgather hop; gossip bf16 momentum; top-k sgd; async_stale int8
    sgd; ``FAULT_PLAN``'s faulty server (momentum, int8/int8z, drop 0.1)
-   and its push_sum sgd (drop 0.05, stall 0.02). Each run first runs
+   and its push_sum sgd (drop 0.05, stall 0.02); the two tiers in 2 pods
+   of 2 (``--comm hierarchical``, fault seed 1): a ring within pods and
+   push_sum across them, sgd, drop 0.3, stall 0.1, intra drop 0.05; the
+   same with bf16 intra and inter codecs, momentum, drop 0.08, stall
+   0.05; a server on both tiers with an int8 inter codec, sgd, intra
+   stall 0.1; and the overlapped exchange (``--overlap``), server int8
+   and ring int8z (one hop), sgd. Each run first runs
    unsharded in this process on the same ``ShardedLayout`` (the port's
    packed round on the card), its buffers and metrics written to a
    temporary directory; each rank then reads its own block of them and
@@ -377,14 +384,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    mean's summation order can move a codec's rounding by a quantum) at
    most ``SHARD_OFF`` of the elements past 1e-5 and every element
    within ``SHARD_LOSSY``; the control, the block held one element
-   over, must fail the same hold. The loss and grad_sq at rtol 1e-4
-   (lossy: 2e-3), wire bytes and participation exactly. The counts are
+   over, must fail the same hold; under overlap each stream's in-flight
+   payload is held alike. The loss and grad_sq at rtol 1e-4 (lossy:
+   2e-3), wire bytes and the three participations exactly, push-sum's
+   mass and its backlog within 1e-3 of G. The counts are
    set to 0 in each rank before each run and read after it: each rank
    launches its update kernel T times a round, ``sq_norm_groups`` 2 + T
    times (traj metrics; +1 for top-k's residual), ``qdq_int8`` once per
-   int8 stream and hop, and ``codec_mix`` never (``shard_launches``,
-   summed over the ranks). Each rank's fenced round seconds and its
-   seconds in collectives are logged. A rank's failure fails the phase.
+   int8 stream and hop (the int8 inter codec and the overlap encode
+   once a round), and ``codec_mix`` never (``shard_launches``, summed
+   over the ranks). Each rank's fenced round seconds, its seconds in
+   collectives and their share are logged. A rank's failure fails the
+   phase.
    Then the launcher as a user starts it, ``python -m
    repro_torch.launch.train --arch paper-lenet --packed --groups 4
    --shard 2`` (2 rounds, T 4, 2 x 128 tokens, ``--trace`` and
@@ -4174,6 +4185,7 @@ ONLINE_T = dict(G=4, rows=8, D=40, lr=0.3, probe_t=8, r_cost=1.0,
 ONLINE_T_REF = dict(static_rounds=419, online_rounds=37, ratio=11.32)
 TELEMETRY_ARCH = "paper-lenet"
 TELEMETRY_SMALL = "paper-mlp"
+ONLINE_T_MAX = 16            # the launcher's --t-max for the online run
 
 
 def online_t_headline(torch, device, floor=ONLINE_T["floor"],
@@ -4270,17 +4282,26 @@ def _telemetry_start(name, args):
     cmd = [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
            "--counted-train"] + args
     log(f"telemetry {name}: train {' '.join(args)}")
-    return subprocess.Popen(cmd, cwd=ROOT, env=dict(os.environ,
-                                                    PYTHONPATH=SRC),
+    # unbuffered: a process killed at its limit leaves every line it printed
+    return subprocess.Popen(cmd, cwd=ROOT, env=dict(
+        os.environ, PYTHONPATH=SRC, PYTHONUNBUFFERED="1"),
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True)
 
 
 def _telemetry_finish(name, proc, timeout):
     """Wait for a phase-15 process: its stdout lines (logged) and the
-    launches it counted. Fails on a non-zero exit."""
+    launches it counted. Fails on a non-zero exit, and past ``timeout``
+    seconds kills it and logs what it printed (the online run's T of
+    each round before it runs) before failing."""
     try:
         out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+        for line in out.splitlines():
+            log(f"telemetry {name}: {line}")
+        fail(f"telemetry {name}: no exit within {timeout} s: {err[-3000:]}")
     finally:
         if proc.poll() is None:
             proc.kill()
@@ -4361,11 +4382,14 @@ def telemetry_launcher_runs(torch, tmp):
     prof = os.path.join(tmp, "prof")
     small = ["--arch", TELEMETRY_SMALL]
     procs = {
-        # lr 0.02 as phase 11's static controller run; rounds cut to 4:
-        # the controller may ask for its cap of 10,000 steps a round
+        # lr 0.02 as phase 11's static controller run; rounds cut to 4 and
+        # T to ONLINE_T_MAX: a round whose gradient norm ends above where
+        # it began fits no decay, and the controller then asks for its cap
+        # (10,000 steps, some 400-1000 s here, by default)
         "online": _telemetry_start("online", small + [
             "--packed", "--opt", "sgd", "--lr", "0.02", "--adaptive-t",
-            "online", "--rounds", "4", "--trace", online]),
+            "online", "--t-max", str(ONLINE_T_MAX), "--rounds", "4",
+            "--trace", online]),
         "sync": _telemetry_start("sync", small + [
             "--packed", "--mode", "sync", "--rounds", "2", "--trace", sync,
             "--checkpoint", os.path.join(tmp, "ck_sync")]),
@@ -4389,8 +4413,8 @@ def telemetry_launcher_runs(torch, tmp):
     secs = [r["phase_s"]["round"] for r in recs]
     ctl_lines = [l for l in res["online"][0] if l.startswith("fences")]
     log(f"telemetry online: T {ts}, round s {secs}, {ctl_lines}")
-    if len(ts) != 4 or ts[0] != 4:
-        fail(f"telemetry online: T {ts}")
+    if len(ts) != 4 or ts[0] != 4 or max(ts) > ONLINE_T_MAX:
+        fail(f"telemetry online: T {ts} (at most {ONLINE_T_MAX})")
     # calibration: 3 rounds of T 4 on comm none
     _hold_launches("online", res["online"][1],
                    {"fused_sgd": 12 + sum(ts)})
@@ -5007,9 +5031,31 @@ SHARD_PLAN = [
     dict(FAULT_PLAN[2], name="faulty server", opt="momentum", lr=0.05,
          qdq_int8=2),
     dict(FAULT_PLAN[0], name="push_sum"),
+    # the two tiers (the reference's sharded cells, tests/
+    # test_hierarchical.py:491) and the overlapped exchange, 2 pods of 2
+    dict(name="hier ring|push_sum sgd", opt="sgd", lr=0.05,
+         comm="hierarchical", n_pods=2, drop_rate=0.3, stall_rate=0.1,
+         intra_drop_rate=0.05),
+    # exact: a cast or int8 run that mixes by the unsharded round's ops
+    # in its order (the tiers' hops and pod sums, a server's sum read as
+    # the same host arrays) is held like fp32, not with the lossy limits
+    dict(name="hier bf16 momentum", opt="momentum", lr=0.05,
+         comm="hierarchical", codec="bf16", inter_codec="bf16", n_pods=2,
+         drop_rate=0.08, stall_rate=0.05, exact=True),
+    dict(name="hier server int8 sgd", opt="sgd", lr=0.05,
+         comm="hierarchical", n_pods=2, intra_topology="server",
+         inter_topology="server", inter_codec="int8", intra_stall_rate=0.1,
+         qdq_int8=1, exact=True),
+    dict(name="overlap server int8 sgd", opt="sgd", lr=0.05, codec="int8",
+         overlap=True, qdq_int8=1, exact=True),
+    # one hop: both packages refuse overlap with more
+    dict(name="overlap ring int8z sgd", opt="sgd", lr=0.05, comm="ring",
+         codec="int8z", overlap=True, qdq_int8=1),
 ]
 SHARD_FLAGS = ("comm", "codec", "moment_codec", "mix_rounds", "staleness",
-               "drop_rate", "stall_rate")
+               "drop_rate", "stall_rate", "overlap", "n_pods",
+               "intra_topology", "inter_topology", "inter_codec",
+               "intra_drop_rate", "intra_stall_rate")
 
 
 def _shard_exchange(run):
@@ -5017,8 +5063,19 @@ def _shard_exchange(run):
 
 
 def _shard_streams(run):
-    return ("params",) + {"sgd": (), "momentum": ("mu",),
-                          "adamw": ("m", "v")}[run["opt"]]
+    """The streams a run holds: params and the moments, and under overlap
+    each one's in-flight payload (``inflight.<stream>``)."""
+    own = ("params",) + {"sgd": (), "momentum": ("mu",),
+                         "adamw": ("m", "v")}[run["opt"]]
+    return own + (tuple(f"inflight.{k}" for k in own)
+                  if run.get("overlap") else ())
+
+
+def _shard_buffer(state, k):
+    """A stream of ``_shard_streams`` in a round's state."""
+    if k.startswith("inflight."):
+        return state["comm"]["inflight"][k.split(".", 1)[1]]
+    return state["params"] if k == "params" else state["opt"][k]
 
 
 def _shard_batches(torch, cfg, device):
@@ -5062,7 +5119,7 @@ def _shard_unsharded(torch, run, out_dir):
                         for k, v in m.items()})
     amax = {}
     for k in _shard_streams(run):
-        v = state["params"] if k == "params" else state["opt"][k]
+        v = _shard_buffer(state, k)
         amax[k] = float(v.abs().max())
         v.cpu().numpy().tofile(os.path.join(out_dir, f"{k}.f32"))
     del state, rnd, v
@@ -5159,13 +5216,13 @@ def shard_rank(rank, world, ref_dir):
             metrics.append(m)
         counts = _all_counts(K)
         streams = _shard_streams(run)
-        bufs = {k: state["params"] if k == "params" else state["opt"][k]
-                for k in streams}
+        bufs = {k: _shard_buffer(state, k) for k in streams}
         if any(not v.is_cuda for v in bufs.values()):
             fail(f"phase 17 rank {rank} {run['name']}: a buffer left the card")
         with open(os.path.join(d, "ref.json")) as f:
             ref = json.load(f)
-        lossy = run.get("codec", "fp32") != "fp32" or "moment_codec" in run
+        lossy = not run.get("exact") and (
+            run.get("codec", "fp32") != "fp32" or "moment_codec" in run)
         lo, hi = sexec.bounds(layout)
         errs = {}
         for k, v in bufs.items():
@@ -5185,10 +5242,19 @@ def shard_rank(rank, world, ref_dir):
                     fail(f"phase 17 rank {rank} {run['name']} round {r} {k}: "
                          f"{got_k.tolist()} against {want_k.tolist()}")
             for k, v in m_ref.items():
-                if (k.startswith("wire_bytes") or k == "participation") \
+                if (k.startswith("wire_bytes")
+                        or k.startswith("participation")) \
                         and float(m[k]) != float(v):
                     fail(f"phase 17 rank {rank} {run['name']} round {r} {k}: "
                          f"{float(m[k])} against {v}")
+        comm_state = state.get("comm", {})
+        if "mass" in comm_state:
+            # push-sum's invariant, flat or across the pods
+            total = float(comm_state["mass"].sum()
+                          + comm_state["backlog_w"].sum())
+            if abs(total - G) > 1e-3:
+                fail(f"phase 17 rank {rank} {run['name']}: mass + backlog "
+                     f"{total} against G {G}")
         want = dict.fromkeys(counts, 0)
         want[f"fused_{run['opt']}"] = SHARD_T * SHARD_ROUNDS
         want["sq_norm_groups"] = ((2 + SHARD_T + run.get("residuals", 0))
@@ -5201,7 +5267,7 @@ def shard_rank(rank, world, ref_dir):
         records.append(dict(secs=secs, coll=coll, counts=counts, errs=errs,
                             transport=mesh.transport,
                             peak_gib=torch.cuda.max_memory_allocated() / 2**30))
-        del state, rnd, bufs, metrics, model, v
+        del state, rnd, bufs, metrics, model, v, comm_state
         gc.collect()
         torch.cuda.empty_cache()
     return records
@@ -5355,7 +5421,8 @@ def phase17(torch, K):
         log(f"phase 17 {run['name']} ({recs[0]['transport']}): fenced round "
             "s by rank " + "; ".join(
                 f"{r}: {[round(x, 4) for x in rec['secs']]} (collectives "
-                f"{[round(x, 4) for x in rec['coll']]})"
+                f"{[round(x, 4) for x in rec['coll']]}, share "
+                f"{sum(rec['coll']) / sum(rec['secs']):.3f})"
                 for r, rec in enumerate(recs)))
         log(f"phase 17 {run['name']}: by stream, over the 8 ranks: max err / "
             "largest element, max share off; control (one element over): "

@@ -224,6 +224,34 @@ class PushSumRound:
 
 
 @dataclasses.dataclass(frozen=True)
+class HierRound:
+    """``Exchange.hier_round``: the pod size ``s``; stage A's liveness
+    ``act_i`` (G,) and its ring delivery masks ``masks_a[h][di]`` (G,)
+    (empty unless the intra tier is a ring of s > 1) or its server's
+    per-member delivery ``deliv`` (G,) and per-pod count ``den``
+    (n_pods,); stage B's push-sum liveness ``act_pod`` (G,) (None unless
+    a push_sum inter tier has a wire), share ``a``, G-axis ``shifts``,
+    ``masks[di]``/``incs[di]`` (G,) and mass before (``w0``) and after
+    (``w``), or its server's leader weights ``lead_w`` (G,) over
+    ``n_live`` live pods; and the comm-state entries the round sets."""
+    s: int
+    act_i: np.ndarray
+    masks_a: list
+    deliv: Optional[np.ndarray]
+    den: Optional[np.ndarray]
+    act_pod: Optional[np.ndarray]
+    a: float
+    shifts: list
+    masks: list
+    incs: list
+    w0: Optional[np.ndarray]
+    w: Optional[np.ndarray]
+    lead_w: Optional[np.ndarray]
+    n_live: np.float32
+    state: dict
+
+
+@dataclasses.dataclass(frozen=True)
 class Exchange:
     topology: str
     codec: codecs_mod.Codec             # the params stream's codec
@@ -848,6 +876,131 @@ class Exchange:
             "participation": _f32(
                 total / np.float32(self.mix_rounds * len(offs)))})
 
+    def check_hier(self, pairs) -> None:
+        """The two-tier exchange's refusals, as the reference's, for each
+        ``(intra codec, inter codec)`` pair of the streams that cross it: a
+        flat FaultPlan (it does not say which tier it masks), an intra
+        codec other than a cast, a push_sum inter tier with a codec other
+        than a cast."""
+        if (self.fault_plan is not None
+                and not isinstance(self.fault_plan,
+                                   faults_mod.TieredFaultPlan)):
+            raise NotImplementedError(
+                "hierarchical faults are per-tier: a flat FaultPlan does "
+                "not say WHICH tier it masks — wrap it as "
+                "faults.TieredFaultPlan(intra=..., inter=...); valid "
+                "tiers: 'intra' (pod-internal), 'inter' (cross-pod)")
+        for c, ic in pairs:
+            if not (c.identity or c.name in ("fp16", "bf16")):
+                raise NotImplementedError(
+                    f"hierarchical intra tier + {c.name}: pod-internal "
+                    "hops carry whole-value payloads, not round deltas "
+                    "(DESIGN.md §16); valid intra codecs: 'fp32', "
+                    "'fp16', 'bf16' — put int8 on the cross-tier wire "
+                    "via inter_codec with inter_topology='server'")
+            if self.inter_topology == "push_sum" and not (
+                    ic.identity or ic.name in ("fp16", "bf16")):
+                raise NotImplementedError(
+                    f"hierarchical push_sum inter tier + {ic.name}: the "
+                    "cross-pod wire carries cumulative (value, weight) "
+                    "mass, not round deltas (DESIGN.md §12/§16); valid "
+                    "push_sum inter codecs: 'fp32', 'fp16', 'bf16' — or "
+                    "inter_topology='server' for 'int8'")
+
+    def hier_round(self, comm_state: dict) -> "HierRound":
+        """One two-tier round's host side, shared by the replicated and
+        the sharded exchange: every mask, liveness vector, leader weight
+        and the push-sum weight channel at full (G,) shape (float32
+        numpy, the reference's ops in its order), and the comm-state
+        entries the round sets (``round``, the three participations, and
+        push-sum's ``mass`` and ``backlog_w``)."""
+        G, n_pods = self.n_groups, self.n_pods
+        s = self.pod_len
+        ip, xp = self.intra_plan, self.inter_plan
+        rnd = int(comm_state["round"])
+        ones = np.ones((G,), np.float32)
+
+        def pod_take(x, d):
+            # the payload member i receives from pod-mate (i + d) % s
+            return np.roll(x.reshape(n_pods, s), -d, axis=1).reshape(-1)
+
+        # ---- stage A: pod-internal tier ------------------------------
+        act_i = ip.active_mask(rnd, G) if ip is not None else ones
+        part_intra = np.float32(1.0)
+        masks_a, deliv, den = [], None, None
+        if s > 1 and self.intra_topology == "ring":
+            _, offs_pod, _ = topo_mod.ring_circulant(s)
+            mask_sum, mask_n = np.float32(0), 0
+            for h in range(self.mix_rounds):
+                mh = []
+                for di, d in enumerate(offs_pod):
+                    bern = (ip.edge_mask(rnd, h, di, G) if ip is not None
+                            else ones)
+                    mh.append(bern * pod_take(act_i, d) * act_i)
+                hop_sum = np.float32(0)
+                for m in mh:
+                    hop_sum = hop_sum + _mask_mean(m)
+                mask_sum = mask_sum + hop_sum
+                mask_n += len(mh)
+                masks_a.append(mh)
+            if ip is not None and mask_n:
+                part_intra = mask_sum / np.float32(mask_n)
+        elif s > 1:                                # intra "server"
+            deliv = ip.push_mask(rnd, G) if ip is not None else ones
+            den = deliv.reshape(n_pods, s).sum(axis=1, dtype=np.float32)
+            if ip is not None:
+                part_intra = _mask_mean(deliv)
+
+        # ---- stage B: cross-pod tier ---------------------------------
+        offs_p = topo_mod.push_sum_offsets(n_pods)
+        state = {}
+        act_pod = w0 = w = lead_w = None
+        masks, incs, shifts, a = [], [], [], 0.0
+        n_live = np.float32(1.0)
+        part_inter = np.float32(1.0)
+        if self.inter_topology == "push_sum" and offs_p:
+            act_x = xp.active_mask(rnd, G) if xp is not None else ones
+            _, pod_live = elect_leaders(act_x, n_pods)
+            act_pod = np.repeat(pod_live, s)
+            a = 1.0 / (len(offs_p) + 1.0)
+            shifts = [dp * s for dp in offs_p]
+            for di, sh in enumerate(shifts):
+                # one Bernoulli per DCN edge per round, drawn per pod on
+                # the inter lane and shared by the pod's member lanes
+                bern = (xp.edge_mask(rnd, 0, di, n_pods)
+                        if xp is not None else np.ones((n_pods,), np.float32))
+                src = np.roll(act_pod, sh)
+                incs.append(src)
+                masks.append(np.repeat(bern, s) * src * act_pod)
+            w0 = comm_state["mass"].numpy()
+            w, blw = _push_sum_weights(
+                w0, comm_state["backlog_w"].numpy(), a, act_pod, shifts,
+                incs, masks)
+            state["mass"] = torch.from_numpy(w)
+            state["backlog_w"] = torch.from_numpy(blw)
+            if xp is not None:
+                total = np.float32(0)
+                for m in masks:
+                    total = total + _mask_mean(m)
+                part_inter = total / np.float32(len(offs_p))
+        elif self.inter_topology == "server":
+            act_x = xp.active_mask(rnd, G) if xp is not None else ones
+            lead_w, plive = elect_leaders(act_i * act_x, n_pods)
+            n_live = np.float32(max(float(plive.sum(dtype=np.float32)), 1.0))
+            if ip is not None or xp is not None:
+                part_inter = _mask_mean(plive)
+        n_is = self._intra_send_count()
+        n_xs = self._inter_send_count()
+        tot = n_is + n_xs
+        state["round"] = comm_state["round"] + 1
+        state["participation"] = _f32(
+            (part_intra * np.float32(n_is) + part_inter * np.float32(n_xs))
+            / np.float32(tot) if tot > 0 else 1.0)
+        state["participation_intra"] = _f32(part_intra)
+        state["participation_inter"] = _f32(part_inter)
+        return HierRound(s, act_i, masks_a, deliv, den, act_pod, a, shifts,
+                         masks, incs, w0, w, lead_w, n_live, state)
+
     def _hier_streams(self, xs: dict, xs0: dict, comm_state: dict):
         """The two-tier round (DESIGN.md §16).
 
@@ -869,69 +1022,28 @@ class Exchange:
 
         Per-tier participation rides the comm state; the overall value
         weights the tiers by their payload counts. Each stream's mixed
-        value is written into its ``xs`` buffer."""
-        G, n_pods = self.n_groups, self.n_pods
-        s = self.pod_len
-        if (self.fault_plan is not None
-                and not isinstance(self.fault_plan,
-                                   faults_mod.TieredFaultPlan)):
-            raise NotImplementedError(
-                "hierarchical faults are per-tier: a flat FaultPlan does "
-                "not say WHICH tier it masks — wrap it as "
-                "faults.TieredFaultPlan(intra=..., inter=...); valid "
-                "tiers: 'intra' (pod-internal), 'inter' (cross-pod)")
-        for name in xs:
-            c = self.stream_codec(name)
-            if not (c.identity or c.name in ("fp16", "bf16")):
-                raise NotImplementedError(
-                    f"hierarchical intra tier + {c.name}: pod-internal "
-                    "hops carry whole-value payloads, not round deltas "
-                    "(DESIGN.md §16); valid intra codecs: 'fp32', "
-                    "'fp16', 'bf16' — put int8 on the cross-tier wire "
-                    "via inter_codec with inter_topology='server'")
-            ic = self.inter_stream_codec(name)
-            if self.inter_topology == "push_sum" and not (
-                    ic.identity or ic.name in ("fp16", "bf16")):
-                raise NotImplementedError(
-                    f"hierarchical push_sum inter tier + {ic.name}: the "
-                    "cross-pod wire carries cumulative (value, weight) "
-                    "mass, not round deltas (DESIGN.md §12/§16); valid "
-                    "push_sum inter codecs: 'fp32', 'fp16', 'bf16' — or "
-                    "inter_topology='server' for 'int8'")
-        ip, xp = self.intra_plan, self.inter_plan
-        rnd = int(comm_state["round"])
+        value is written into its ``xs`` buffer. The masks and weights
+        are ``hier_round``'s."""
+        n_pods = self.n_pods
+        self.check_hier([(self.stream_codec(k), self.inter_stream_codec(k))
+                         for k in xs])
+        hr = self.hier_round(comm_state)
+        s = hr.s
         new_state = dict(comm_state)
         dev = _device(xs["params"])
-        ones = np.ones((G,), np.float32)
 
         def pod_take(x, d):
             # the payload member i receives from pod-mate (i + d) % s
             r = x.reshape((n_pods, s) + tuple(x.shape[1:]))
-            if isinstance(x, np.ndarray):
-                return np.roll(r, -d, axis=1).reshape(x.shape)
             return torch.roll(r, -d, 1).reshape(x.shape)
 
         # ---- stage A: pod-internal tier ------------------------------
-        act_i = ip.active_mask(rnd, G) if ip is not None else ones
-        act_i_d = _col(act_i, dev)
+        act_i_d = _col(hr.act_i, dev)
         ys = {k: tree.tree_map(lambda v: v.to(torch.float32), x)
               for k, x in xs.items()}
-        part_intra = np.float32(1.0)
-        if s > 1 and self.intra_topology == "ring":
+        if hr.masks_a:
             w_self, offs_pod, w_edge = topo_mod.ring_circulant(s)
-            masks_a, mask_sum, mask_n = [], np.float32(0), 0
-            for h in range(self.mix_rounds):
-                mh = []
-                for di, d in enumerate(offs_pod):
-                    bern = (ip.edge_mask(rnd, h, di, G) if ip is not None
-                            else ones)
-                    mh.append(bern * pod_take(act_i, d) * act_i)
-                hop_sum = np.float32(0)
-                for m in mh:
-                    hop_sum = hop_sum + _mask_mean(m)
-                mask_sum = mask_sum + hop_sum
-                mask_n += len(mh)
-                masks_a.append([_col(m, dev) for m in mh])
+            masks_a = [[_col(m, dev) for m in mh] for mh in hr.masks_a]
             for k in list(ys):
                 codec = self.stream_codec(k)
 
@@ -954,17 +1066,12 @@ class Exchange:
                     return v
 
                 ys[k] = _each_leaf(ring, ys[k])
-            if ip is not None and mask_n:
-                part_intra = mask_sum / np.float32(mask_n)
-        elif s > 1:                                # intra "server"
-            deliv = ip.push_mask(rnd, G) if ip is not None else ones
-            dv = deliv.reshape(n_pods, s)
-            den = dv.sum(axis=1, dtype=np.float32)
-            recv = (act_i.reshape(n_pods, s) > 0) & (den[:, None] > 0)
+        elif hr.deliv is not None:                 # intra "server"
+            dv = hr.deliv.reshape(n_pods, s)
+            recv = (hr.act_i.reshape(n_pods, s) > 0) & (hr.den[:, None] > 0)
             dv_d = torch.as_tensor(dv[:, :, None], device=dev)
-            den_d = torch.as_tensor(np.maximum(den, np.float32(1))[:, None,
-                                                                   None],
-                                    device=dev)
+            den_d = torch.as_tensor(np.maximum(hr.den, np.float32(1))[
+                :, None, None], device=dev)
             recv_d = torch.as_tensor(recv[:, :, None], device=dev)
             for k in list(ys):
                 codec = self.stream_codec(k)
@@ -978,68 +1085,34 @@ class Exchange:
                         v.shape)
 
                 ys[k] = _each_leaf(pod_mean, ys[k])
-            if ip is not None:
-                part_intra = _mask_mean(deliv)
 
         # ---- stage B: cross-pod tier ---------------------------------
-        offs_p = topo_mod.push_sum_offsets(n_pods)
         cstates = dict(comm_state.get("codec", {}))
         touched = False
         mixed = {}
-        if self.inter_topology == "push_sum" and offs_p:
-            act_x = xp.active_mask(rnd, G) if xp is not None else ones
-            _, pod_live = elect_leaders(act_x, n_pods)
-            act_pod = np.repeat(pod_live, s)
-            a = 1.0 / (len(offs_p) + 1.0)
-            shifts = [dp * s for dp in offs_p]
-            masks, incs = [], []
-            for di, sh in enumerate(shifts):
-                # one Bernoulli per DCN edge per round, drawn per pod on
-                # the inter lane and shared by the pod's member lanes
-                bern = (xp.edge_mask(rnd, 0, di, n_pods)
-                        if xp is not None else np.ones((n_pods,), np.float32))
-                src = np.roll(act_pod, sh)
-                incs.append(src)
-                masks.append(np.repeat(bern, s) * src * act_pod)
-            w0 = comm_state["mass"].numpy()
-            new_w, new_blw = _push_sum_weights(
-                w0, comm_state["backlog_w"].numpy(), a, act_pod, shifts,
-                incs, masks)
-            act_pod_d = _col(act_pod, dev)
-            masks_d = [_col(m, dev) for m in masks]
-            incs_d = [_col(m, dev) for m in incs]
-            w0_d, w_d = _col(w0, dev), _col(new_w, dev)
+        if hr.act_pod is not None:                 # inter push_sum
+            act_pod_d = _col(hr.act_pod, dev)
+            masks_d = [_col(m, dev) for m in hr.masks]
+            incs_d = [_col(m, dev) for m in hr.incs]
+            w0_d, w_d = _col(hr.w0, dev), _col(hr.w, dev)
             backlog = {k: _own_backlog(v)
                        for k, v in comm_state["backlog"].items()}
             for k in xs:
                 ic = self.inter_stream_codec(k)
 
                 def ratio(y, bl, out):
-                    num = _push_sum_hop(y * w0_d, bl, a, act_pod_d, shifts,
-                                        incs_d, masks_d, ic)
+                    num = _push_sum_hop(y * w0_d, bl, hr.a, act_pod_d,
+                                        hr.shifts, incs_d, masks_d, ic)
                     return torch.div(num, w_d, out=out)
 
                 mixed[k] = _each_leaf(ratio, ys.pop(k), backlog[k], xs[k])
-            new_state["mass"] = torch.from_numpy(new_w)
             new_state["backlog"] = backlog
-            new_state["backlog_w"] = torch.from_numpy(new_blw)
-            if xp is not None:
-                total = np.float32(0)
-                for m in masks:
-                    total = total + _mask_mean(m)
-                part_inter = total / np.float32(len(offs_p))
-            else:
-                part_inter = np.float32(1.0)
         elif self.inter_topology == "push_sum":    # single pod: no DCN
             for k in xs:
                 mixed[k] = tree.tree_map(lambda o, y: o.copy_(y), xs[k],
                                          ys.pop(k))
-            part_inter = np.float32(1.0)
         else:                                      # inter "server"
-            act_x = xp.active_mask(rnd, G) if xp is not None else ones
-            lead_w, plive = elect_leaders(act_i * act_x, n_pods)
-            n_live = np.float32(max(float(plive.sum(dtype=np.float32)), 1.0))
-            lw_d = _col(lead_w, dev)
+            lw_d = _col(hr.lead_w, dev)
             for k in xs:
                 ic = self.inter_stream_codec(k)
                 y = ys.pop(k)
@@ -1061,26 +1134,16 @@ class Exchange:
                         touched = True
 
                 def leader_mean(out, v):
-                    m = (lw_d * v).sum(dim=0, keepdim=True) / float(n_live)
+                    m = (lw_d * v).sum(dim=0, keepdim=True) / float(
+                        hr.n_live)
                     return out.copy_(torch.where(act_i_d > 0,
                                                  m.expand_as(v), v))
 
                 mixed[k] = _each_leaf(leader_mean, xs[k], y)
                 del y
-            part_inter = (_mask_mean(plive)
-                          if (ip is not None or xp is not None)
-                          else np.float32(1.0))
-        n_is = self._intra_send_count()
-        n_xs = self._inter_send_count()
-        tot = n_is + n_xs
         if touched:
             new_state["codec"] = cstates
-        new_state["round"] = comm_state["round"] + 1
-        new_state["participation"] = _f32(
-            (part_intra * np.float32(n_is) + part_inter * np.float32(n_xs))
-            / np.float32(tot) if tot > 0 else 1.0)
-        new_state["participation_intra"] = _f32(part_intra)
-        new_state["participation_inter"] = _f32(part_inter)
+        new_state.update(hr.state)
         return mixed, new_state
 
     def _apply_downlink(self, mixed: dict, comm_state: dict,

@@ -570,7 +570,11 @@ def _make_sharded_round(loss_fn, opt, cfg, layout, exch, sexec):
              if cfg.average_opt_state else ())
     flat_vg = packing.value_and_flat_grad(loss_fn, layout)
     opt_step = sexec.opt_step(opt)
-    exch_streams = sexec.exchange_streams(exch, layout)
+    if exch.overlap:
+        mix_inflight = sexec.mix_streams(exch)
+        encode_streams = sexec.encode_streams(exch, layout)
+    else:
+        exch_streams = sexec.exchange_streams(exch, layout)
     consensus = sexec.consensus_sq_groups(opt.impl)
     mesh, g = sexec.mesh, sexec.group_index
     lo, hi = sexec.bounds(layout)
@@ -586,6 +590,11 @@ def _make_sharded_round(loss_fn, opt, cfg, layout, exch, sexec):
         opt_state = dict(state["opt"])
         xs0 = {k: (params if k == "params" else opt_state[k]).clone()
                for k in ("params",) + tuple(mkeys) if exch.lossy_stream(k)}
+        if exch.overlap:
+            # the previous round's payload is mixed first (DESIGN.md §14),
+            # as the unsharded packed round does
+            inflight = comm_state["inflight"]
+            mixed_inf = mix_inflight(inflight)
         batch = tree.tree_map(lambda x: x[g], batch_G)
         steps = ([tree.tree_map(lambda x: x[t], batch) for t in range(T)]
                  if micro else None)
@@ -630,8 +639,17 @@ def _make_sharded_round(loss_fn, opt, cfg, layout, exch, sexec):
         del full
         consensus_pre = consensus(params)
         xs = {"params": params, **{k: opt_state[k] for k in mkeys}}
-        mixed, comm_state = exch_streams(xs, xs0, comm_state)
-        mixed = _clamp_nonneg_streams(mixed, opt, exch)
+        if exch.overlap:
+            # p' = local(p) + mix(inflight) - inflight on each block, in
+            # place; p' goes in flight, encoded against the round start
+            for k, x in xs.items():
+                x.add_(mixed_inf.pop(k).sub_(inflight[k]))
+            mixed = _clamp_nonneg_streams(xs, opt, exch)
+            new_inflight, comm_state = encode_streams(mixed, xs0, comm_state)
+            comm_state = {**comm_state, "inflight": new_inflight}
+        else:
+            mixed, comm_state = exch_streams(xs, xs0, comm_state)
+            mixed = _clamp_nonneg_streams(mixed, opt, exch)
         del xs0, xs
         params = mixed["params"]
         opt_state.update({k: mixed[k] for k in mkeys})
@@ -701,7 +719,10 @@ def init_state(params, opt: Optimizer, n_groups: Optional[int] = None,
     G axis). Packed (``layout``): the params tree packed to (N,), copied
     to every row of a (G, N) buffer, plus the optimizer's state; with
     ``shardexec``, this rank's (1, shard) block of it (the exchange's
-    state then shards alike). Pytree: the params tree and its optimizer
+    state then shards alike: the in-flight payload, the staleness
+    buffers and push-sum's backlogs, of flat push_sum and of the tiers,
+    take the block's shape, the mass counters stay the full (G,)
+    host vectors). Pytree: the params tree and its optimizer
     state, replicated over G (the count too, so each group keeps its
     own). An exchange that carries state between rounds adds it under
     ``"comm"``, for the params and (when the rounds average opt state)

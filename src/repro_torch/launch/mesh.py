@@ -310,31 +310,56 @@ class Mesh:
 
     def shift(self, t: torch.Tensor, offsets: Sequence[int]) -> list:
         """Point-to-point over the group subgroup: for each offset d,
-        receive the block of group ``(g + d) % G`` and send this block to
-        group ``(g - d) % G``. Returns the received blocks, one per offset,
-        on ``t``'s device."""
+        receive the block of group ``(g + d) % G`` (``permute`` by the
+        uniform map ``src_of[g] = (g + d) % G``)."""
+        G = self.n_groups
+        return self.permute(t, [[(j + d) % G for j in range(G)]
+                                for d in offsets])
+
+    def permute(self, t: torch.Tensor,
+                src_ofs: Sequence[Sequence[int]]) -> list:
+        """Point-to-point over the group subgroup by permutations of the
+        groups: for each map ``src_of``, member g receives the block of
+        group ``src_of[g]`` and sends this block to the group that reads
+        it (the inverse permutation). Returns the received blocks, one
+        per map, on ``t``'s device; every map goes in one post (cuda-ipc)
+        or one batch of sends and receives."""
         t0 = time.perf_counter()
         G, g, s = self.n_groups, self.group_index, self.shard_index
+        for src_of in src_ofs:
+            if sorted(src_of) != list(range(G)):
+                raise ValueError(f"src_of {list(src_of)} is no permutation "
+                                 f"of the {G} groups")
+        out = [torch.empty(t.shape, dtype=t.dtype, device=t.device)
+               for _ in src_ofs]
         if self.transport == "cuda-ipc":
             blocks = self._post(t, "group")
-            out = [torch.empty(t.shape, dtype=t.dtype, device=t.device)
-                   .copy_(blocks[(g + d) % G]) for d in offsets]
+            for o, src_of in zip(out, src_ofs):
+                o.copy_(blocks[src_of[g]])
             self._release("group")
             self._tick(t0)
             return out
         grp = self._groups["group"]
         src = self._wire(t.contiguous())
         recvs, ops = [], []
-        for d in offsets:
-            r = torch.empty(t.shape, dtype=t.dtype, device=src.device)
-            recvs.append(r)
+        for o, src_of in zip(out, src_ofs):
+            if src_of[g] == g:
+                o.copy_(t)
+                continue
+            r = o if o.device == src.device else torch.empty(
+                t.shape, dtype=t.dtype, device=src.device)
+            if r is not o:
+                recvs.append((o, r))
             ops.append(dist.P2POp(dist.isend, src,
-                                  self.rank_of((g - d) % G, s), grp))
-            ops.append(dist.P2POp(dist.irecv, r,
-                                  self.rank_of((g + d) % G, s), grp))
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
-        out = [r if r.device == t.device else r.to(t.device) for r in recvs]
+                                  self.rank_of(list(src_of).index(g), s),
+                                  grp))
+            ops.append(dist.P2POp(dist.irecv, r, self.rank_of(src_of[g], s),
+                                  grp))
+        if ops:
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+        for o, r in recvs:
+            o.copy_(r)
         self._tick(t0)
         return out
 

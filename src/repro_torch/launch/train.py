@@ -32,6 +32,9 @@ sync-DP baseline) on one device (counterpart of
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --arch paper-mlp --reduced --packed --shard 2 --comm ring \\
         --codec int8                              # G * S ranks
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --arch paper-mlp --reduced --packed --shard 2 --comm hierarchical \\
+        --n-pods 2                                # the tiers, sharded
 
 Runs on ``cuda`` unless ``--device cpu`` is given; on ``cuda`` the
 packed updates, norms and exchange codecs launch the CUDA kernels of
@@ -44,7 +47,10 @@ round from the round's local gradient-norm trajectory (paper Sec 4,
 ``core/controller.py`` ``AdaptiveT``; on a lossy network the cost ratio
 is repriced by the exchange's delivery rate); ``--adaptive-t online``
 (``OnlineT``) also re-estimates the cost ratio from the fenced phase
-times and scales T by the measured consensus contraction. Each round
+times and scales T by the measured consensus contraction. Either
+controller's T stays within ``--t-max`` (the controllers' own cap of
+10,000 by default): a round whose gradient norm ends above where it
+began fits no decay, and the controller then asks for its cap. Each round
 prints its participation (the delivered fraction of its
 transmissions). The vlm and audio architectures (``internvl2-1b``,
 ``whisper-base``) get their stubbed frontends' inputs beside each
@@ -72,8 +78,10 @@ unsharded round's (G,) vectors; rank 0 prints, writes the trace and the
 profile, and saves the checkpoint, gathered to the unsharded layout. The
 transport is printed (``launch/mesh.py``): NCCL where each rank of a
 host has a card of its own, else CUDA IPC mailboxes on the shared card.
-``--comm hierarchical`` and ``--overlap`` wait for ROADMAP.md Queue A
-item 5b there.
+Every exchange flag of the packed round runs sharded but
+``--downlink-codec``, as in the reference: ``--comm hierarchical`` with
+its tier flags and ``--overlap`` (whose fence calibration runs on the
+ranks' blocks) included.
 """
 from __future__ import annotations
 
@@ -253,6 +261,9 @@ def _parser() -> argparse.ArgumentParser:
                     help="r = C_g/C_c for the adaptive controller (online "
                          "mode uses it as the prior and refines it from "
                          "measured phase times)")
+    ap.add_argument("--t-max", type=int, default=OnlineT.t_max,
+                    help="cap on the adaptive controller's T (a round "
+                         "that fits no decay asks for the cap)")
     ap.add_argument("--opt", default="sgd",
                     choices=["sgd", "momentum", "adamw"])
     ap.add_argument("--packed", action="store_true",
@@ -532,9 +543,11 @@ def _train(args, t_i, device, *, sharded: bool, ap=None) -> None:
         # online controller refines that prior from the calibrated fences
         ctl = None
         if args.adaptive_t == "online":
-            ctl = OnlineT(r=args.cost_ratio * exchange.delivery_rate)
+            ctl = OnlineT(r=args.cost_ratio * exchange.delivery_rate,
+                          t_max=args.t_max)
         elif args.adaptive_t:
-            ctl = AdaptiveT(r=args.cost_ratio * exchange.delivery_rate)
+            ctl = AdaptiveT(r=args.cost_ratio * exchange.delivery_rate,
+                            t_max=args.t_max)
         t_cur = lcfg.inner_steps
         # the exchange-time split calibrates against the packed round's
         # uniform shape; pytree rounds skip it (the report's phase check
@@ -567,6 +580,9 @@ def _train(args, t_i, device, *, sharded: bool, ap=None) -> None:
                         n_groups=args.groups, inner_steps=t_cur,
                         max_inner=MAX_INNER, metrics=lcfg.metrics)
                     rnd = rebuild(lcfg)
+                if ctl is not None:
+                    # before the round: a round that never ends leaves its T
+                    say(f"controller: round {n} T {t_cur}", flush=True)
                 with trace.phase("round") as f:
                     state, m = f(rnd(state, batch))
                 t_used = int(m["inner_steps"].max())

@@ -35,13 +35,26 @@ block's work is eager torch on its device:
   identical on every rank; push_sum's value blocks travel point to point
   and its weight channel is the replicated exchange's host arithmetic,
   the same on every rank. ``codec_mix`` does not run here: it needs all
-  G rows in one place.
+  G rows in one place;
+* the two-tier exchange (``_hier_fn``, ``Exchange._hier_streams``'
+  semantics): every mask, liveness vector, leader weight and the push-sum
+  weight channel are ``Exchange.hier_round``'s host arrays at full (G,)
+  shape, the ones the replicated round uses; within pods a ring runs one
+  ``Mesh.permute`` per pod-circulant offset (or reads the dense
+  allgather, bit-equal), a server sums the pod-mates' blocks in offset
+  order; across pods push_sum ships stride-``pod_size`` shifts with the
+  backlogs that conserve mass, a server sums the elected
+  leaders' blocks (an int8 cross-tier codec on the shard, its noise
+  drawn at the full rows shape and sliced);
+* the overlapped exchange: ``mix_streams`` mixes the previous round's
+  in-flight payload with ``mix`` a stream, ``encode_streams`` encodes
+  each stream once on its block (int8's noise sliced from the full
+  draw, top-k by the sharded threshold with its shard-local residual).
 
 Refused, as in the reference: a ``downlink_codec``, a codec that is not
-``shardable``, async_stale with top-k, push_sum with a lossy codec.
-Waiting for ROADMAP.md Queue A item 5b: the two-tier exchange
-(``_hier_fn``) and the overlap encode and mix (``encode_streams``,
-``mix_streams``).
+``shardable``, async_stale with top-k, push_sum with a lossy codec, and
+on the two tiers a flat ``FaultPlan``, an intra codec other than a cast
+and a push_sum inter tier with one.
 """
 from __future__ import annotations
 
@@ -61,24 +74,26 @@ from repro_torch.optim import packing
 # unselected near the threshold waits one round in the residual
 TOPK_BISECT_ITERS = 26
 
-_HIER = ("the sharded two-tier (hierarchical) exchange is not ported yet "
-         "(ROADMAP.md Queue A item 5b); run it without sharding")
-_OVERLAP = ("the sharded overlap encode and mix (encode_streams, "
-            "mix_streams) are not ported yet "
-            "(ROADMAP.md Queue A item 5b); "
-            "run the overlapped exchange without sharding")
+def _check_shardable(codecs) -> None:
+    for c in codecs:
+        if not (c.shardable or c.identity):
+            raise NotImplementedError(
+                f"codec {c.name!r} is not shardable — run it on the "
+                "replicated path (DESIGN.md §9)")
 
 
 def check_exchange(exch) -> None:
-    """Refuse what the sharded exchange does not run: the reference's
-    refusals (a downlink codec, a codec that is not shardable,
-    async_stale with top-k, push_sum with a codec other than a cast) and
-    the two exchanges of ROADMAP.md Queue A item 5b (the tiers, overlap).
-    Shapes only: the launcher checks before it starts any rank."""
+    """Refuse what the sharded exchange does not run, as the reference
+    does: a downlink codec, a codec that is not shardable, async_stale
+    with top-k, push_sum with a codec other than a cast, and the two
+    tiers' own refusals (``Exchange.check_hier``). Shapes only: the
+    launcher checks before it starts any rank."""
     if exch.topology == "hierarchical":
-        raise NotImplementedError(_HIER)
-    if exch.overlap:
-        raise NotImplementedError(_OVERLAP)
+        pairs = [(exch.stream_codec(k), exch.inter_stream_codec(k))
+                 for k in ("params", "mu")]
+        exch.check_hier(pairs)
+        _check_shardable(ic for _, ic in pairs)
+        return
     if exch.topology == "push_sum":
         for c in (exch.codec, exch.mcodec):
             if not (c.identity or c.name in ("fp16", "bf16")):
@@ -87,11 +102,7 @@ def check_exchange(exch) -> None:
                     "cumulative mass, not round deltas (DESIGN.md §12); "
                     "valid push_sum codecs: 'fp32', 'fp16', 'bf16'")
         return
-    for c in (exch.codec, exch.mcodec):
-        if not (c.shardable or c.identity):
-            raise NotImplementedError(
-                f"codec {c.name!r} is not shardable — run it on the "
-                "replicated path (DESIGN.md §9)")
+    _check_shardable((exch.codec, exch.mcodec))
     if exch.downlink_codec is not None:
         raise NotImplementedError(
             "downlink_codec is replicated-path only: its broadcast-"
@@ -246,10 +257,57 @@ class ShardExec:
         return fn
 
     def mix_streams(self, exch):
-        raise NotImplementedError(_OVERLAP)
+        """``Exchange.mix_inflight`` on sharded buffers (the overlapped
+        round, DESIGN.md §14): the codec-free mix of the previous round's
+        in-flight payload, one ``mix`` a stream, into fresh blocks (the
+        round still reads ``inflight``)."""
+        one = self.mix(exch)
+        return lambda inflight: {k: one(v) for k, v in inflight.items()}
 
     def encode_streams(self, exch, layout: packing.Layout):
-        raise NotImplementedError(_OVERLAP)
+        """``Exchange.encode_streams`` on sharded buffers: every stream
+        encoded once on its (1, shard) block, no mixing: an identity codec
+        ships a copy, a lossy one ``x0 + decode(encode(x - x0))``; int8's
+        noise is drawn at the full rows shape and sliced (the block's
+        output bit-equal to the unsharded encode), top-k selects by the
+        sharded threshold with its shard-local residual (kept although
+        ``get_exchange`` refuses overlap with top-k). Returns ``fn(xs,
+        xs0, comm_state) -> (x_hat, new_comm_state)``."""
+        _check_shardable((exch.codec, exch.mcodec))
+        for c in (exch.codec, exch.mcodec):
+            if (not c.identity) and c.chunk > 0:
+                self.check_layout(layout, c.chunk)
+        self.check_layout(layout)
+
+        def fn(xs, xs0, comm_state):
+            new_state = dict(comm_state)
+            cstates = dict(comm_state.get("codec", {}))
+            touched = False
+            out = {}
+            for k, x in xs.items():
+                codec = exch.stream_codec(k)
+                if codec.identity:
+                    out[k] = x.clone()
+                    continue
+                if codec.topk_frac > 0:
+                    out[k], res = self._topk_step(
+                        x, xs0[k], cstates[k]["residual"],
+                        self._topk_k(codec, layout), layout.shard_size)
+                    cstates[k] = {"residual": res}
+                elif codec.chunk > 0:
+                    cnt = cstates[k]["count"]
+                    out[k] = self._compress_local(
+                        codec, x, xs0[k],
+                        self._noise(codec, cnt, layout, x.device))
+                    cstates[k] = {"count": cnt + 1}
+                else:
+                    out[k] = self._compress_local(codec, x, xs0[k], None)
+                touched = touched or codec.stateful
+            if touched:
+                new_state["codec"] = cstates
+            return out, new_state
+
+        return fn
 
     def _hop_fn(self, w_np):
         """One W hop of a local (1, shard) block, or None for the mean
@@ -288,7 +346,41 @@ class ShardExec:
 
         return hop
 
+    # -- codecs on a block --------------------------------------------------
+
+    @staticmethod
+    def _compress_local(codec, y, ref, u):
+        """``ref + decode(encode(y - ref))`` on a local block; a chunked
+        codec quantizes its rows with the noise ``u``."""
+        d = y - ref
+        if codec.chunk > 0:
+            rows = d.reshape(-1, codec.chunk)
+            return ref + codec.compress_rows(rows, u).reshape(d.shape)
+        return ref + codec.compress(d, {})[0]
+
+    def _noise(self, codec, count, layout: packing.ShardedLayout, device):
+        """This rank's rows of the noise drawn at the full rows shape of
+        the (G, Np) buffer."""
+        G, c = self.n_groups, codec.chunk
+        u = codec.noise(count, (G * layout.padded // c, c),
+                        device).reshape(G, -1, c)
+        rs = layout.shard_size // c
+        lo = self.shard_index * rs
+        return u[self.group_index, lo:lo + rs].clone()
+
     # -- sharded top-k selection (DESIGN.md §11) --------------------------
+
+    @staticmethod
+    def _topk_k(codec, layout: packing.Layout) -> int:
+        """Entries a group ships: the fraction of the padded row."""
+        return max(1, int(round(codec.topk_frac * layout.padded)))
+
+    def _topk_step(self, y, ref, res, k: int, shard_size: int):
+        """One top-k encode of a block: ``(ref + d_hat, residual)``."""
+        c = (y - ref) + res
+        tau = self._topk_threshold(c.abs()[0], k, shard_size)
+        d_hat, res = self._topk_select(c, tau)
+        return ref + d_hat, res
 
     def _topk_threshold(self, a, k: int, shard_size: int):
         """The per-group threshold of the sharded top-k codec: the largest
@@ -329,6 +421,8 @@ class ShardExec:
         check_exchange(exch)
         if exch.topology == "push_sum":
             return self._push_sum_fn(exch, layout)
+        if exch.topology == "hierarchical":
+            return self._hier_fn(exch, layout)
         for c in (exch.codec, exch.mcodec):
             if (not c.identity) and c.chunk > 0:
                 self.check_layout(layout, c.chunk)
@@ -343,21 +437,6 @@ class ShardExec:
         buffered = (exch.topology == "async_stale"
                     or (faulty and exch.topology == "server"))
         rs = layout.shard_size
-
-        def compress_local(codec, y, ref, u):
-            d = y - ref
-            if codec.chunk > 0:
-                rows = d.reshape(-1, codec.chunk)
-                return ref + codec.compress_rows(rows, u).reshape(d.shape)
-            return ref + codec.compress(d, {})[0]
-
-        def noise(codec, count, device):
-            """This rank's rows of the noise drawn at the full rows shape
-            of the (G, Np) buffer."""
-            rows = (G * layout.padded // codec.chunk, codec.chunk)
-            u = codec.noise(count, rows, device).reshape(G, -1, codec.chunk)
-            lo = self.shard_index * rs // codec.chunk
-            return u[g, lo:lo + rs // codec.chunk].clone()
 
         def fn(xs, xs0, comm_state):
             new_state = dict(comm_state)
@@ -385,36 +464,31 @@ class ShardExec:
                 res = cstates[k]["residual"] if selective else None
                 if chunked:
                     cnt = int(cstates[k]["count"])
-                    us = [noise(codec, cnt + h, x.device)
+                    us = [self._noise(codec, cnt + h, layout, x.device)
                           for h in range(n_comp)]
                     cstates[k] = {"count": cstates[k]["count"] + n_comp}
                     touched = True
-                k_sel = (max(1, int(round(codec.topk_frac * layout.padded)))
-                         if selective else 0)
-
-                def topk_step(y, ref, res):
-                    c = (y - ref) + res
-                    tau = self._topk_threshold(c.abs()[0], k_sel, rs)
-                    d_hat, res = self._topk_select(c, tau)
-                    return ref + d_hat, res
+                k_sel = self._topk_k(codec, layout) if selective else 0
 
                 if exch.w is not None:                 # ring / gossip
                     y, ref = x, xs0.get(k)
                     for h in range(hops):
                         if selective:
-                            y, res = topk_step(y, ref, res)
+                            y, res = self._topk_step(y, ref, res, k_sel,
+                                                     rs)
                             ref = y
                         elif lossy:
-                            y = compress_local(codec, y, ref, us[h]
+                            y = self._compress_local(codec, y, ref, us[h]
                                                if chunked else None)
                             ref = y
                         y = (hop(y, mrows[h], act) if faulty else hop(y))
                     mixed[k] = y
                 else:
                     if selective:
-                        y, res = topk_step(x, xs0[k], res)
+                        y, res = self._topk_step(x, xs0[k], res, k_sel,
+                                                 rs)
                     elif lossy:
-                        y = compress_local(codec, x, xs0[k],
+                        y = self._compress_local(codec, x, xs0[k],
                                            us[0] if chunked else None)
                     else:
                         y = x
@@ -475,7 +549,7 @@ class ShardExec:
         the weight channel are ``Exchange.push_sum_round``'s host arrays,
         the same on every rank."""
         self.check_layout(layout)
-        G, g = self.n_groups, self.group_index
+        G = self.n_groups
         offs = topo_mod.push_sum_offsets(G)
         # sender (g - d) % G pushes to g: the shift of offset -d
         back = [(-d) % G for d in offs]
@@ -490,8 +564,7 @@ class ShardExec:
             dev = xs["params"].device
 
             def col(v):
-                return torch.as_tensor(np.asarray(v, np.float32)[g:g + 1]
-                                       .reshape(1, 1), device=dev)
+                return self._own(v, dev)
 
             act = col(ps.act)
             masks = [[col(m) for m in mh] for mh in ps.masks]
@@ -500,20 +573,10 @@ class ShardExec:
             mixed = {}
             for k, v in xs.items():
                 codec = exch.stream_codec(k)
-                bl = backlog[k]
                 num = v.to(torch.float32) * col(ps.w0)
                 for h in range(exch.mix_rounds):
-                    ax = ps.a * num
-                    y = torch.where(act > 0, ax, num)
-                    for di, r in enumerate(self.mesh.shift(ax, back)):
-                        r.mul_(incs[h][di])
-                        bl[di].add_(r)
-                        t = bl[di] if codec.identity \
-                            else codec.compress(bl[di], {})[0]
-                        mt = masks[h][di] * t
-                        y.add_(mt)
-                        bl[di].sub_(mt)
-                    num = y
+                    num = self._push_sum_hop(num, backlog[k], ps.a, act, back,
+                                             incs[h], masks[h], codec)
                 mixed[k] = torch.div(num, col(ps.w), out=v)
             new_state.update(ps.state)
             new_state["backlog"] = backlog
@@ -521,9 +584,148 @@ class ShardExec:
 
         return fn
 
+    def _own(self, v, device) -> torch.Tensor:
+        """This group's entry of a (G,) host vector, a (1, 1) float32
+        tensor on ``device``."""
+        return torch.as_tensor(np.asarray(v, np.float32)[
+            self.group_index:self.group_index + 1].reshape(1, 1),
+            device=device)
+
+    def _push_sum_hop(self, num, bl, a, act, back, incs, masks, codec):
+        """One push-sum hop of a (1, shard) block, the replicated
+        ``_push_sum_hop`` op for op: keep ``a * num`` where live, receive
+        each offset's share point to point (the shift of ``back[di]``)
+        into its backlog ``bl[di]`` (updated in place), add what the edge
+        delivers (a cast codec quantizes it; its residue stays queued).
+        ``act``, ``incs[di]`` and ``masks[di]`` are this group's (1, 1)
+        entries."""
+        ax = a * num
+        y = torch.where(act > 0, ax, num)
+        for di, r in enumerate(self.mesh.shift(ax, back)):
+            r.mul_(incs[di])
+            bl[di].add_(r)
+            t = bl[di] if codec.identity else codec.compress(bl[di], {})[0]
+            mt = masks[di] * t
+            y.add_(mt)
+            bl[di].sub_(mt)
+        return y
+
     def _hier_fn(self, exch, layout: packing.Layout):
-        raise NotImplementedError(
-            _HIER)
+        """The two-tier round on sharded blocks (DESIGN.md §16), the
+        replicated ``Exchange._hier_streams`` on ``Exchange.hier_round``'s
+        host arrays (each rank reads its group's entries).
+
+        Stage A, within pods (contiguous on the G axis): a ring runs
+        ``mix_rounds`` pod-circulant hops, each offset's neighbour block
+        through ``Mesh.permute`` (``hop_impl="allgather"``: read from one
+        dense gather a hop, bit-equal), a cast codec on the payload and a
+        lost payload replaced by the receiver's own value, as the
+        replicated ring's ops in its order (bit-equal to it); a server
+        sums the delivered pod-mates' blocks in offset order from self
+        (the reference's order) over the survivors. Stage B, across pods:
+        push_sum ships ``a * w * x`` along the stride-``pod_size`` shifts
+        into backlogs that shard like the params (the mass and its
+        backlog are the host arrays, the same on every rank); a server
+        sums ``lead_w * y`` over the group subgroup (``all_reduce``) and
+        divides by the live pods, the leader's payload coded as a delta
+        against the round start by the cross-tier codec (int8 on the
+        shard, its noise drawn at the full rows shape and sliced)."""
+        for ic in map(exch.inter_stream_codec, ("params", "mu")):
+            if (not ic.identity) and ic.chunk > 0:
+                self.check_layout(layout, ic.chunk)
+        self.check_layout(layout)
+        G, g = self.n_groups, self.group_index
+        s, mesh = exch.pod_len, self.mesh
+        pod0, i = (g // s) * s, g % s
+
+        def pod_blocks(v, offs):
+            """The blocks of pod-mates ``(i + d) % s``, one per offset."""
+            if self.hop_impl == "allgather":
+                full = mesh.all_gather(v[0], "group")
+                return [full[pod0 + (i + d) % s][None] for d in offs]
+            return [b[None] for b in mesh.permute(
+                v[0], [[(j // s) * s + (j % s + d) % s for j in range(G)]
+                       for d in offs])]
+
+        def cast(codec, t):
+            return t if codec.identity else codec.compress(t, {})[0]
+
+        def fn(xs, xs0, comm_state):
+            hr = exch.hier_round(comm_state)
+            new_state = dict(comm_state)
+            dev = xs["params"].device
+            act_i = hr.act_i[g] > 0
+            ys = {k: x.to(torch.float32) for k, x in xs.items()}
+            # ---- stage A: pod-internal tier ------------------------------
+            if hr.masks_a:
+                w_self, offs_pod, w_edge = topo_mod.ring_circulant(s)
+                for k in ys:
+                    codec, v = exch.stream_codec(k), ys[k]
+                    for mh in hr.masks_a:
+                        out = w_self * v
+                        for di, t in enumerate(pod_blocks(v, offs_pod)):
+                            t = cast(codec, t) if mh[di][g] > 0 else v
+                            out.add_(t * w_edge)
+                            del t
+                        v = out if act_i else v
+                    ys[k] = v
+            elif hr.deliv is not None:                 # intra "server"
+                den = hr.den[g // s]
+                for k in ys:
+                    codec, v = exch.stream_codec(k), ys[k]
+                    num = float(hr.deliv[g]) * cast(codec, v)
+                    for d, t in zip(range(1, s),
+                                    pod_blocks(v, range(1, s))):
+                        num = num + float(hr.deliv[pod0 + (i + d) % s]) \
+                            * cast(codec, t)
+                    if act_i and den > 0:
+                        ys[k] = num / max(float(den), 1.0)
+            # ---- stage B: cross-pod tier ---------------------------------
+            cstates = dict(comm_state.get("codec", {}))
+            touched = False
+            mixed = {}
+            if hr.act_pod is not None:                 # inter push_sum
+                def col(v):
+                    return self._own(v, dev)
+
+                back = [(-sh) % G for sh in hr.shifts]
+                act_pod = col(hr.act_pod)
+                masks = [col(m) for m in hr.masks]
+                incs = [col(m) for m in hr.incs]
+                backlog = dict(comm_state["backlog"])
+                for k, x in xs.items():
+                    num = self._push_sum_hop(
+                        ys.pop(k) * col(hr.w0), backlog[k], hr.a, act_pod,
+                        back, incs, masks, exch.inter_stream_codec(k))
+                    mixed[k] = torch.div(num, col(hr.w), out=x)
+                new_state["backlog"] = backlog
+            elif exch.inter_topology == "push_sum":    # single pod: no DCN
+                mixed = {k: x.copy_(ys.pop(k)) for k, x in xs.items()}
+            else:                                      # inter "server"
+                lead_w = float(hr.lead_w[g])
+                for k, x in xs.items():
+                    ic = exch.inter_stream_codec(k)
+                    y = ys.pop(k)
+                    if not ic.identity:
+                        key = "inter:" + k
+                        u = None
+                        if ic.chunk > 0:
+                            cnt = cstates[key]["count"]
+                            u = self._noise(ic, cnt, layout, dev)
+                            cstates[key] = {"count": cnt + 1}
+                            touched = True
+                        y = self._compress_local(
+                            ic, y, xs0[k].to(torch.float32), u)
+                    m = mesh.all_reduce(lead_w * y, "group").div_(
+                        float(hr.n_live))
+                    mixed[k] = x.copy_(m if act_i else y)
+                    del y, m
+            if touched:
+                new_state["codec"] = cstates
+            new_state.update(hr.state)
+            return mixed, new_state
+
+        return fn
 
     def exchange(self, exch, layout: packing.Layout):
         """``exchange_streams`` for the params alone: ``(x, x0,

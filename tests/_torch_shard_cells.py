@@ -56,9 +56,8 @@ def sharded_layout(params, n_shards):
         packing.layout_of(tree.tree_map(torch.as_tensor, params)), n_shards)
 
 
-def exchange_of(cell, noise):
-    """The cell's exchange; int8 draws the reference's noise (given any),
-    else the port's own generator."""
+def table_hook(noise):
+    """A ``noise_hook`` reading ``noise[(codec seed, count)]``."""
     def hook(seed):
         def fn(count, shape):
             u = noise[(seed, count)]
@@ -66,9 +65,15 @@ def exchange_of(cell, noise):
             return u
         return fn
 
+    return hook
+
+
+def exchange_of(cell, noise):
+    """The cell's exchange; int8 draws the reference's noise (given any),
+    else the port's own generator."""
     return comm.get_exchange(cell.get("topo", "server"),
                              cell.get("codec", "fp32"), cell.get("G", G),
-                             noise_hook=hook if noise else None,
+                             noise_hook=table_hook(noise) if noise else None,
                              **cell.get("ex", {}))
 
 

@@ -297,26 +297,27 @@ def test_profile_writes_a_chrome_trace(tmp_path):
 # -- the online T controller ------------------------------------------------
 
 
-def test_online_t_follows_the_reference_controller(tmp_path, monkeypatch,
-                                                   capsys):
-    """--adaptive-t online on the packed round: the T it takes each round
-    equals the reference's OnlineT fed the same telemetry, read back from
-    the trace (trajectory, consensus, codec error, exchange_total) and
-    the printed calibration. The fence clock here is quantized to 1/8 of
-    a unit (at 1000 units a second), so every fenced time and the split
-    derived from it survive the trace's 6-digit rounding exactly."""
+def _online_ts(tmp_path, monkeypatch, capsys, extra=(), t_max=None):
+    """--adaptive-t online on the packed round: (the T each round ran,
+    the T the reference's OnlineT takes fed the same telemetry), read back
+    from the trace (trajectory, consensus, codec error, exchange_total)
+    and the printed calibration. The fence clock here is quantized to 1/8
+    of a unit (at 1000 units a second), so every fenced time and the
+    split derived from it survive the trace's 6-digit rounding exactly."""
     clock = trace_mod.time.perf_counter
     monkeypatch.setattr(trace_mod, "time", types.SimpleNamespace(
         perf_counter=lambda: math.floor(clock() * 8000) / 8))
     path = str(tmp_path / "online.jsonl")
     assert _main(["--packed", "--opt", "sgd", "--lr", "0.02",
-                  "--adaptive-t", "online", "--trace", path]) == 0
+                  "--adaptive-t", "online", "--trace", path]
+                 + list(extra)) == 0
     out = capsys.readouterr().out
     line = next(l for l in out.splitlines() if l.startswith("fences: "))
     local_step = float(line.split()[2])
     meta, recs = report.load(path)
     assert report.check(meta, recs) == []
-    ctl = jctl.OnlineT(r=0.01 * meta["delivery_rate"])
+    ctl = jctl.OnlineT(r=0.01 * meta["delivery_rate"],
+                       **({} if t_max is None else {"t_max": t_max}))
     ts = [int(max(r["metrics"]["inner_steps"])) for r in recs]
     want = [2]
     for r in recs:
@@ -329,8 +330,43 @@ def test_online_t_follows_the_reference_controller(tmp_path, monkeypatch,
             consensus_pre=mean("consensus_sq"),
             consensus_post=mean("consensus_sq_post"),
             codec_err=sum(mean(k) for k in m if k.startswith("codec_err/"))))
-    assert ts == want[:len(ts)]
+    return ts, want[:len(ts)]
+
+
+def test_online_t_follows_the_reference_controller(tmp_path, monkeypatch,
+                                                   capsys):
+    """The T --adaptive-t online takes each round equals the reference's
+    OnlineT fed the same telemetry."""
+    ts, want = _online_ts(tmp_path, monkeypatch, capsys)
+    assert ts == want
     assert ts[1] != ts[0], ts
+
+
+def test_online_t_stays_within_t_max(tmp_path, monkeypatch, capsys):
+    """--t-max caps the controller's T: every round runs at most the cap,
+    the reference's OnlineT with the same cap takes the same T, and the
+    uncapped controller asks for more (so the cap is what binds)."""
+    free, _ = _online_ts(tmp_path, monkeypatch, capsys)
+    cap = max(free[1:]) - 1
+    assert cap >= 2, free
+    ts, want = _online_ts(tmp_path, monkeypatch, capsys,
+                          ["--t-max", str(cap)], t_max=cap)
+    assert ts == want
+    assert max(ts) == cap and ts[0] == 2, (ts, free)
+
+
+def test_controller_t_max_caps_a_round_that_fits_no_decay():
+    """A round whose gradient norm ends above where it began fits no decay
+    order: both packages' OnlineT then ask for their cap of T, 10,000 by
+    default, or the cap they were given."""
+    from repro_torch.core import controller as tctl
+    rising = [5.5, 5.45, 5.5, 5.52, 5.53, 5.55]
+    for t_max in (10_000, 16):
+        got = tctl.OnlineT(r=0.01, t_max=t_max).update(
+            rising, t_used=6, consensus_pre=2.8e-2, consensus_post=0.0)
+        want = jctl.OnlineT(r=0.01, t_max=t_max).update(
+            rising, t_used=6, consensus_pre=2.8e-2, consensus_post=0.0)
+        assert got == want == t_max
 
 
 # -- the OnlineT headline ---------------------------------------------------

@@ -23,7 +23,17 @@ One world of 8 gloo CPU ranks (G 4 x S 2) runs every cell
   replicated round, within 1e-5 relative;
 - top-k on the ``cuda-ipc`` transport's mailboxes (file mappings on the
   CPU): the same selection as the gloo world's (tau from a MAX and an
-  integer SUM, exact on either transport).
+  integer SUM, exact on either transport);
+- the two-tier exchange (``tests/test_hierarchical.py:491-560``, G 4 in
+  2 pods): the reference's three cells against its replicated
+  ``streams`` (within 1e-5 of the stream's largest element, the three
+  participations and the round exact, the mass within 1e-6), the
+  pod-internal hop bit-equal under ``ppermute`` and ``allgather``, 6
+  faulty rounds conserving the mass to 1e-3 in both packages;
+- the overlapped packed round (``tests/test_overlap.py:620``): 3 sharded
+  rounds of server int8 and ring int8z against the reference's
+  replicated overlap round, params and ``inflight`` within rtol 1e-5 /
+  atol 1e-6, wire bytes equal.
 """
 import jax
 import jax.numpy as jnp
@@ -49,6 +59,21 @@ FAULTY = [
     ("async_stale", "int8", dict(staleness=1, drop_rate=0.15), False),
 ]
 PUSH8 = dict(mix_rounds=2, drop_rate=0.1, stall_rate=0.05, fault_seed=3)
+# the reference's sharded two-tier cells (tests/test_hierarchical.py:491)
+HIER = {
+    "ring-push_sum-fp32": ("fp32", dict(drop_rate=0.3, stall_rate=0.1,
+                                        intra_drop_rate=0.05)),
+    "ring-push_sum-bf16": ("bf16", dict(drop_rate=0.08, stall_rate=0.05,
+                                        inter_codec="bf16")),
+    "server-server-int8": ("fp32", dict(intra_topology="server",
+                                        inter_topology="server",
+                                        inter_codec="int8",
+                                        intra_stall_rate=0.1)),
+}
+HIER6 = dict(n_pods=2, drop_rate=0.2, stall_rate=0.1, fault_seed=3)
+OVERLAP = {f"overlap-{t}-{c}": dict(kind="round", opt="sgd", lr=0.3, T=4,
+                                    topo=t, codec=c, ex=dict(overlap=True))
+           for t, c in (("server", "int8"), ("ring", "int8z"))}
 ROUNDS = {
     "round-server": dict(kind="round", opt="sgd", T=2, rounds=4,
                          metrics="final",
@@ -104,15 +129,32 @@ def _cells():
             xs0={} if codec == "fp32" else {"params": x0})
     cells.update(ROUNDS)
     cells["mailbox-topk"] = dict(cells["topk"], mailbox=True)
+    for name, (codec, kw) in HIER.items():
+        ex = dict(kw, n_pods=2, fault_seed=6)
+        lossy = comm.get_exchange("hierarchical", codec, G,
+                                  **ex).lossy_stream("params")
+        cells[f"hier-{name}"] = dict(
+            kind="exchange", topo="hierarchical", codec=codec, ex=ex,
+            xs={"params": x}, init={"params": x0},
+            xs0={"params": x0} if lossy else {})
+    cells["hier-allgather"] = dict(cells["hier-ring-push_sum-fp32"],
+                                   hop_impl="allgather")
+    cells["hier6"] = dict(kind="exchange", topo="hierarchical", ex=HIER6,
+                          rounds=6, xs={"params": x}, xs0={},
+                          init={"params": x0})
+    cells.update(OVERLAP)
     return cells
 
 
 @pytest.fixture(scope="module")
 def world():
-    out = C.run_in_background(_cells(), noise_table())
-    refs = {name: ref_round(cell) for name, cell in ROUNDS.items()}
+    noise = noise_table(lanes=("params", "moments", "inter"))
+    out = C.run_in_background(_cells(), noise)
+    refs = {name: ref_round(cell) for name, cell in {**ROUNDS,
+                                                     **OVERLAP}.items()}
     got = out()
     got["refs"] = refs
+    got["noise"] = noise
     return got
 
 
@@ -256,3 +298,101 @@ def test_sharded_faulty_rounds_match_replicated(world, name):
         np.testing.assert_allclose(m["loss"], m_r["loss"], rtol=1e-4)
         assert int(m["wire_bytes"]) == int(m_r["wire_bytes"])
     assert int(st["comm"]["round"]) == int(st_r["comm"]["round"])
+
+
+@pytest.mark.parametrize("name", sorted(HIER))
+def test_sharded_hierarchical_matches_reference(world, name):
+    """The tiers' masks, leader weights and int8 noise are the host's
+    full-shape arrays, the reference's: the sharded two-tier exchange
+    gathered within 1e-5 of the reference's replicated ``streams``, the
+    participations and the round exact, the mass within 1e-6."""
+    codec, kw = HIER[name]
+    _, x0, x = packed_setup()
+    got = world[f"hier-{name}"][0]
+    ex = jcomm.get_exchange("hierarchical", codec, G, n_pods=2, impl="jnp",
+                            fault_seed=6, **kw)
+    xs0 = ({"params": jnp.asarray(x0)} if ex.lossy_stream("params")
+           else {})
+    # eager, as the port's tier tests run it: the participations' float32
+    # arithmetic unfused, so they compare exactly
+    out_r, st_r = ex.streams({"params": jnp.asarray(x)}, xs0,
+                             ex.init(jnp.asarray(x0)))
+    ss = got["state"]
+    assert rel_err(got["mixed"]["params"], out_r["params"]) <= 1e-5
+    for k in ("participation", "participation_intra",
+              "participation_inter"):
+        assert float(ss[k]) == float(st_r[k]), k
+    assert int(ss["round"]) == int(st_r["round"]) == 1
+    # the port's replicated round on the same host arrays (hier_round):
+    # the same ops element for element, bit for bit
+    pex = comm.get_exchange("hierarchical", codec, G, n_pods=2,
+                            fault_seed=6, noise_hook=C.table_hook(
+                                world["noise"]), **kw)
+    out_p, st_p = pex.streams(
+        {"params": torch.as_tensor(x)},
+        {k: torch.as_tensor(x0) for k in xs0},
+        pex.init(torch.as_tensor(x0)))
+    np.testing.assert_array_equal(got["mixed"]["params"],
+                                  out_p["params"].numpy())
+    for k in ("participation", "participation_intra",
+              "participation_inter", "mass", "backlog_w"):
+        if k in st_p:
+            np.testing.assert_array_equal(ss[k], st_p[k].numpy())
+    if ex.inter_topology == "push_sum":
+        np.testing.assert_allclose(ss["mass"], np.asarray(st_r["mass"]),
+                                   rtol=0, atol=1e-6)
+        assert mass_total(ss) == pytest.approx(G, abs=1e-3)
+    else:
+        assert int(ss["codec"]["inter:params"]["count"]) \
+            == int(st_r["codec"]["inter:params"]["count"]) == 1
+
+
+def test_sharded_pod_hop_ppermute_bit_equal_allgather(world):
+    """The pod-internal hop's ``Mesh.permute`` and the dense allgather
+    read the same neighbour blocks: the exchange and its push-sum state
+    bit-equal."""
+    a = world["hier-ring-push_sum-fp32"][0]
+    b = world["hier-allgather"][0]
+    np.testing.assert_array_equal(a["mixed"]["params"],
+                                  b["mixed"]["params"])
+    for k in ("mass", "backlog_w"):
+        np.testing.assert_array_equal(a["state"][k], b["state"][k])
+    np.testing.assert_array_equal(a["state"]["backlog"]["params"],
+                                  b["state"]["backlog"]["params"])
+
+
+def test_sharded_hierarchical_multi_round_conserves_mass(world):
+    """6 faulty two-tier rounds: every round within 1e-5 of the
+    reference's, the mass within 1e-3 of G in both packages."""
+    _, x0, x = packed_setup()
+    ex = jcomm.get_exchange("hierarchical", "fp32", G, **HIER6)
+    fr = jax.jit(ex.streams)
+    sr = ex.init(jnp.asarray(x0))
+    xr = jnp.asarray(x)
+    for got in world["hier6"]:
+        o_r, sr = fr({"params": xr}, {}, sr)
+        xr = o_r["params"]
+        assert rel_err(got["mixed"]["params"], xr) <= 1e-5
+        assert mass_total(got["state"]) == pytest.approx(G, abs=1e-3)
+        assert mass_total(sr) == pytest.approx(G, abs=1e-3)
+    assert int(world["hier6"][-1]["state"]["round"]) == 6
+
+
+@pytest.mark.parametrize("name", sorted(OVERLAP))
+def test_sharded_overlap_round_matches_reference(world, name):
+    """3 sharded overlapped rounds (the in-flight payload on the block,
+    mixed before the local steps, encoded after them) against the
+    reference's replicated overlap round on the same padded layout."""
+    got, (st_r, ms_r) = world[name], world["refs"][name]
+    st = got["state"]
+    np.testing.assert_allclose(st["params"], st_r["params"], rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(st["comm"]["inflight"]["params"],
+                               st_r["comm"]["inflight"]["params"],
+                               rtol=1e-5, atol=1e-6)
+    assert int(st["comm"]["codec"]["params"]["count"]) \
+        == int(st_r["comm"]["codec"]["params"]["count"]) == 3
+    for m, m_r in zip(got["metrics"], ms_r):
+        for k in m_r:
+            if k.startswith("wire_bytes"):
+                assert int(m[k]) == int(m_r[k]), k

@@ -1,15 +1,19 @@
 """The train launcher's sharded run, as a user starts it: ``--shard 2
---groups 4 --packed`` on paper-mlp's reduction for 2 rounds. The launcher
-starts its 8 gloo ranks on the CPU itself (one world) and rank 0 prints
-and saves the checkpoint, gathered to the unsharded layout. Held against
-the unsharded launcher in this process (one intra-op thread): the same
-round lines to their printed digits (loss, grad_sq, T, consensus), and
-the same averaged params within rtol 1e-5 / atol 1e-6 (the sharded
-mean's all_reduce sums in another order); the wire bytes are the padded
-buffer's (``ShardedLayout``), as in the reference launcher."""
+--groups 4 --packed`` on paper-mlp's reduction for 2 rounds, with the
+server exchange, the two tiers (``--comm hierarchical --n-pods 2``) and
+the overlapped ring int8 (``--overlap``, its fences calibrated on the
+ranks). The launcher starts its 8 gloo ranks on the CPU itself (one
+world) and rank 0 prints and saves the checkpoint, gathered to the
+unsharded layout. Held against the unsharded launcher in this process
+(one intra-op thread): the same round lines to their printed digits
+(loss, grad_sq, T, participation, consensus), and the same averaged
+params within rtol 1e-5 / atol 1e-6 (the sharded mean's all_reduce sums
+in another order); the wire bytes are the padded buffer's
+(``ShardedLayout``), as in the reference launcher."""
 import re
 
 import numpy as np
+import pytest
 import torch
 
 from repro_torch.launch import train
@@ -24,20 +28,22 @@ def _rounds(out):
                      r"part (\S+) cons (\S+)")
     got = [pat.match(l) for l in out.splitlines() if l.startswith("round ")]
     assert got and all(got), out
-    return [(m[1], m[2], m[3], m[6]) for m in got], [m[4] for m in got]
+    return ([(m[1], m[2], m[3], m[5], m[6]) for m in got],
+            [m[4] for m in got])
 
 
-def test_sharded_launcher_matches_unsharded(capfd, tmp_path):
+def _sharded_vs_unsharded(capfd, tmp_path, extra=()):
+    """The sharded launcher beside the unsharded one on the same flags."""
     sharded, plain = str(tmp_path / "sharded"), str(tmp_path / "plain")
-    train.main(ARGS + ["--shard", "2", "--world-timeout", "300",
-                       "--checkpoint", sharded])
+    train.main(ARGS + list(extra) + ["--shard", "2", "--world-timeout",
+                                     "300", "--checkpoint", sharded])
     out = capfd.readouterr().out
     assert "sharded execution: G=4 x 2 shards on 8 ranks" in out
     assert "transport gloo-cpu" in out
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        train.main(ARGS + ["--checkpoint", plain])
+        train.main(ARGS + list(extra) + ["--checkpoint", plain])
     finally:
         torch.set_num_threads(threads)
     ref = capfd.readouterr().out
@@ -51,3 +57,16 @@ def test_sharded_launcher_matches_unsharded(capfd, tmp_path):
     for k in b.files:
         assert a[k].shape == b[k].shape, k
         np.testing.assert_allclose(a[k], b[k], rtol=1e-5, atol=1e-6)
+
+
+def test_sharded_launcher_matches_unsharded(capfd, tmp_path):
+    _sharded_vs_unsharded(capfd, tmp_path)
+
+
+@pytest.mark.parametrize("extra", [
+    ["--comm", "hierarchical", "--n-pods", "2"],
+    ["--comm", "ring", "--codec", "int8", "--overlap"]],
+    ids=["hierarchical", "overlap"])
+def test_sharded_launcher_tiers_and_overlap_match_unsharded(capfd, tmp_path,
+                                                            extra):
+    _sharded_vs_unsharded(capfd, tmp_path, extra)

@@ -42,7 +42,7 @@ from repro.comm import faults as jfaults
 from repro.core import localsgd as jlsgd
 from repro.optim import packing as jpacking
 from repro_torch import comm, optim, tree
-from repro_torch.comm import codecs
+from repro_torch.comm import codecs, faults
 from repro_torch.core import localsgd as lsgd
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.optim import packing
@@ -59,13 +59,13 @@ def quad_loss_j(params, batch):
     return 0.5 * jnp.sum(r ** 2) + 0.1 * jnp.sum(params["u"] ** 2)
 
 
-def noise_table(g=G, n_shards=2, counts=8):
+def noise_table(g=G, n_shards=2, counts=8, lanes=("params", "moments")):
     """The reference's int8 noise at the (G, Np) rows shape, per codec
     seed lane and count."""
     params, _ = C.problem(g=g)
     rows = (g * C.sharded_layout(params, n_shards).padded // 256, 256)
     out = {}
-    for lane in ("params", "moments"):
+    for lane in lanes:
         seed = jfaults.codec_seed(0, lane)
         ref = jcodecs.int8(seed=seed, impl="jnp")
         for c in range(counts):
@@ -328,8 +328,9 @@ def test_plan_and_layout_guards():
 
 
 def test_sharded_path_refusals():
-    """The reference's refusals, and the two exchanges of Queue A item
-    5b. top-k is not refused: it shards by the threshold selection."""
+    """The reference's refusals, the two tiers' among them. top-k is not
+    refused: it shards by the threshold selection; nor are the two tiers
+    and overlap themselves."""
     params, _ = C.problem()
     fake = fake_plan()
     layout = packing.shard_layout(
@@ -348,15 +349,29 @@ def test_sharded_path_refusals():
     for ex in refused:
         with pytest.raises(NotImplementedError):
             fake.exchange(ex, layout)
-    for ex in (comm.get_exchange("hierarchical", "fp32", G, n_pods=2),
-               comm.get_exchange("ring", "int8", G, overlap=True)):
-        with pytest.raises(NotImplementedError, match="Queue A item 5b"):
+    hier = comm.get_exchange("hierarchical", "fp32", G, n_pods=2)
+    int8 = codecs.get_codec("int8")
+    tiers = [
+        (dataclasses.replace(hier, fault_plan=faults.FaultPlan(
+            seed=0, drop_rate=0.1)),
+         "TieredFaultPlan"),
+        (dataclasses.replace(hier, codec=int8), "intra tier"),
+        (dataclasses.replace(hier, inter_codec=int8), "push_sum inter tier"),
+    ]
+    for ex, what in tiers:
+        with pytest.raises(NotImplementedError, match=what):
             fake.exchange_streams(ex, layout)
-    for fn in (lambda: fake.mix_streams(None),
-               lambda: fake.encode_streams(None, layout),
-               lambda: fake._hier_fn(None, layout)):
-        with pytest.raises(NotImplementedError, match="Queue A item 5b"):
-            fn()
+        with pytest.raises(NotImplementedError, match=what):
+            shx.check_exchange(ex)
+    # the tiers and overlap build on a shard
+    overlap = comm.get_exchange("ring", "int8", G, overlap=True)
+    for ex in (hier, comm.get_exchange(
+            "hierarchical", "fp32", G, n_pods=2, intra_topology="server",
+            inter_topology="server", inter_codec="int8"), overlap):
+        shx.check_exchange(ex)
+    fake.exchange_streams(hier, layout)
+    fake.mix_streams(overlap)
+    fake.encode_streams(overlap, layout)
 
 
 def test_transport_and_device_by_host(monkeypatch):

@@ -76,15 +76,8 @@ def _inproc(args, capsys, cmd=CMD, launcher="train"):
 def test_cli_refuses_flags_outside_the_slice(capsys):
     # --trace, --profile and --adaptive-t online run since the telemetry
     # slice (tests/test_torch_obs.py); --shard since the sharding slice
-    # (tests/test_torch_shard_launch.py), but not with the two-tier and
-    # overlap exchanges, nor off the packed round
-    for extra in (["--comm", "hierarchical", "--n-pods", "2"],
-                  ["--comm", "ring", "--codec", "int8", "--overlap"]):
-        code, _, err = _main(["--device", "cpu", "--shard", "2"] + extra,
-                             capsys)
-        assert code != 0
-        assert "not ported yet" in err and "Queue A item 5b" in err, (
-            extra, err)
+    # (tests/test_torch_shard_launch.py), with every exchange but a
+    # downlink codec, and not off the packed round
     code, _, err = _main(["--device", "cpu", "--shard", "2",
                           "--downlink-codec", "bf16"], capsys)
     assert code != 0 and "downlink_codec" in err
